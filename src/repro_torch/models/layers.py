@@ -1,0 +1,108 @@
+"""Shared model layers (port of ``repro/models/layers.py:27-123,326-375``).
+
+Plain functions over parameter dictionaries, in the config dtype with FP32
+islands where the JAX package has them (norm statistics, final logits).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * w.float() + b.float()
+    return out.to(x.dtype)
+
+
+def apply_norm(cfg, x: torch.Tensor, p: Dict[str, torch.Tensor],
+               prefix: str) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p[f"{prefix}_w"], p[f"{prefix}_b"])
+    return rms_norm(x, p[f"{prefix}_w"])
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         fraction: float = 1.0) -> torch.Tensor:
+    """x: (B, T, H, D); positions: (B, T) or (T,). Rotates the first
+    `fraction` of D."""
+    D = x.shape[-1]
+    rot = int(D * fraction) // 2 * 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    ang = ang[None, :, None, :] if positions.ndim == 1 else ang[:, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = xr[..., :half].float(), xr[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+def _project_qkv(cfg, p, x: torch.Tensor, positions: torch.Tensor):
+    B, T, _ = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(B, T, H, hd)
+    k = (x @ p["wk"]).reshape(B, T, Hkv, hd)
+    v = (x @ p["wv"]).reshape(B, T, Hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["qn_w"])
+        k = rms_norm(k, p["kn_w"])
+    if cfg.pos == "rope":
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    return q, k, v
+
+
+def mlp_apply(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p["wi"]
+    if cfg.act in ("swiglu", "geglu"):
+        ff = p["wo"].shape[0]
+        g, u = h[..., :ff].float(), h[..., ff:].float()
+        act = F.silu(g) if cfg.act == "swiglu" else F.gelu(g, approximate="tanh")
+        h = (act * u).to(x.dtype)
+    elif cfg.act == "gelu":
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    elif cfg.act == "relu2":
+        r = F.relu(h.float())
+        h = (r * r).to(x.dtype)
+    else:
+        raise ValueError(f"unknown act {cfg.act!r}")
+    return h @ p["wo"]
+
+
+def embed(cfg, p, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    x = p["tok"][tokens]
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    if cfg.pos == "learned":
+        # padding positions may run past the table; JAX clamps such gathers
+        x = x + p["pos"][torch.clamp(positions, max=p["pos"].shape[0] - 1)]
+    return x
+
+
+def unembed(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
+    return x.float() @ w.float()
