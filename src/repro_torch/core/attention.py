@@ -123,3 +123,48 @@ def attention_lamp(q, k, v, site: LampSite, *, causal: bool = True,
                    else torch.full((B, Tq), float(H * Tk), device=dev))
         rate = n_sel.sum() / torch.clamp(n_valid.sum(), min=1)
     return out, AttnAux(rate, n_sel, n_valid)
+
+
+def decode_attention_lamp(q, k_cache, v_cache, length, site: LampSite, *,
+                          scale: Optional[float] = None,
+                          window: Optional[int] = None, reduce: bool = True,
+                          tau=None) -> Tuple[torch.Tensor, AttnAux]:
+    """Single-token decode (port of ``repro/core/attention.py:386``):
+    q (B, H, 1, D) against a cache (B, H, S, D) of which the first
+    `length[b]` positions are valid (the last `window` of them with a
+    sliding window). The relaxed_ln row length is `length` itself, not
+    capped by the window, as in both JAX paths. With `reduce=False` the
+    counts are (B,), summed over heads. `tau` overrides `site.tau`."""
+    q = q.to(torch.float32)
+    k_cache, v_cache = k_cache.to(torch.float32), v_cache.to(torch.float32)
+    B, H, Tq, D = q.shape
+    S = k_cache.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    length = torch.as_tensor(length, device=q.device)
+    pos = torch.arange(S, device=q.device)[None, None, None, :]
+    ln = length[:, None, None, None]
+    ok = pos < ln
+    if window is not None:
+        ok = ok & (pos > ln - 1 - window)
+    ok = torch.broadcast_to(ok, (B, H, Tq, S))
+    kt = k_cache.transpose(-1, -2)
+    qs = q * scale
+    if site.enabled:
+        y_low = dot_ps(qs, kt, site.mu, granularity=site.granularity)
+        mask = _select(y_low, site, ok,
+                       row_lengths=torch.broadcast_to(length[:, None, None],
+                                                      (B, H, Tq)),
+                       tau=tau)
+        y = torch.where(mask, torch.matmul(qs, kt), y_low)
+    else:
+        y = torch.matmul(qs, kt)
+        mask = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
+    z = L.masked_softmax(y, ok)
+    out = torch.einsum("bhqk,bhkd->bhqd", z, v_cache)
+    m, okf = mask.to(torch.float32), ok.to(torch.float32)
+    if reduce:
+        n_sel, n_valid = m.sum(), okf.sum()
+    else:
+        n_sel, n_valid = m.sum(dim=(1, 2, 3)), okf.sum(dim=(1, 2, 3))
+    rate = n_sel.sum() / torch.clamp(n_valid.sum(), min=1)
+    return out, AttnAux(rate, n_sel, n_valid)

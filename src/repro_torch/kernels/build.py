@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` is compiled by ``nvcc`` into a shared library
 with a plain C interface, at first use, into ``kernels/build/`` (listed in
-``.gitignore``). The library name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+``.gitignore``). The library name carries a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.
 Nothing is built when the module is imported: machines without ``nvcc``
 (the CPU test runs) import it freely.
 """
@@ -38,6 +39,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             [_P] * 12 + [_I] * 13 + [_F, _I, _P], _I),
         "lamp_round_to_mantissa": ([_P, _P, _LL, _I, _P], _I),
     },
+    "paged_decode.cu": {
+        "lamp_paged_decode_attention": (
+            [_P] * 11 + [_I] * 12 + [_F, _I, _P], _I),
+    },
 }
 
 _lock = threading.Lock()
@@ -54,8 +59,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 

@@ -1,0 +1,94 @@
+// Device helpers shared by the paged LAMP attention kernels
+// (paged_attention.cu, paged_decode.cu), so the PS(mu) rounding and the
+// selection rules are defined once.
+//
+// Bit-exactness: round_to_mantissa is bit-exact with
+// repro_torch.core.numerics.round_to_mantissa. dot_low_chunked spells each
+// product and sum with __fmul_rn / __fadd_rn (and the sources are built with
+// -fmad=false), so at granularity 1 it matches
+// repro_torch.core.mixed_matmul.dot_ps bit for bit. expf, logf, sqrtf and
+// division are the IEEE-accurate ones (never --use_fast_math): they feed the
+// selection thresholds.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace lamp_dev {
+
+constexpr float NEG = -1e30f;
+constexpr float TINY = 1.1754944e-38f;
+constexpr unsigned FULL = 0xffffffffu;
+
+enum Rule { RULE_NONE = 0, RULE_STRICT = 1, RULE_RELAXED = 2, RULE_RELAXED_LN = 3 };
+
+__device__ __forceinline__ float round_to_mantissa(float x, int mu) {
+  if (mu >= 23) return x;
+  unsigned bits = __float_as_uint(x);
+  if ((bits & 0x7F800000u) == 0x7F800000u) return x;   // Inf / NaN
+  const int shift = 23 - mu;
+  const unsigned low = (1u << shift) - 1u;
+  const unsigned rem = bits & low;
+  const unsigned half = 1u << (shift - 1);
+  const unsigned lsb = (bits >> shift) & 1u;
+  const bool up = rem > half || (rem == half && lsb);
+  bits = (bits & ~low) + (up ? (1u << shift) : 0u);   // carry may reach the exponent
+  return __uint_as_float(bits);
+}
+
+__device__ __forceinline__ float dot_exact(const float* q, const float* k, int hd) {
+  float acc = 0.f;
+  for (int d = 0; d < hd; ++d) acc = fmaf(q[d], k[d], acc);
+  return acc;
+}
+
+// PS(mu) logit with the rounding points of dot_ps at granularity g >= 1
+// (g < hd). Granularity 0, g >= hd and mu >= 23 go through dot_exact.
+__device__ __forceinline__ float dot_low_chunked(const float* q, const float* k,
+                                                 int hd, int mu, int g) {
+  float acc = 0.f;
+  for (int s = 0; s < hd; s += g) {
+    const int e = min(s + g, hd);
+    float part = __fmul_rn(q[s], k[s]);
+    for (int d = s + 1; d < e; ++d) part = __fadd_rn(part, __fmul_rn(q[d], k[d]));
+    acc = round_to_mantissa(__fadd_rn(acc, part), mu);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+  return x;
+}
+
+// The look-ahead rule on one low-precision logit y of a valid key (ok),
+// against the row's pass-1 statistics: smax = max(y + log|y|) for the
+// relaxed rules, m and l (max and normalizer of the y_low softmax) for the
+// strict rule. n_row is the softmax row's length for relaxed_ln.
+__device__ __forceinline__ bool lamp_selects(int rule, float y, bool ok, float smax,
+                                             float m, float l, float tau,
+                                             float log_tau, int n_row, int n_ref) {
+  if (rule == RULE_STRICT) {
+    float z = ok ? expf(y - m) : 0.f;
+    z = z / fmaxf(l, TINY);
+    return ok && __fmul_rn(__fmul_rn(2.f * z, 1.f - z), fabsf(y)) > tau;
+  }
+  const float s = __fadd_rn(y, logf(fabsf(y)));   // -inf at y == 0: never selects
+  float thr;
+  if (rule == RULE_RELAXED) {
+    thr = log_tau + smax;
+  } else {                                         // RULE_RELAXED_LN
+    float tau_row = __fmul_rn(tau, sqrtf(__fdiv_rn((float)n_ref, (float)max(n_row, 1))));
+    tau_row = fminf(tau_row, 0.999999f);
+    thr = logf(tau_row) + smax;
+  }
+  return ok && s > thr;
+}
+
+}  // namespace lamp_dev

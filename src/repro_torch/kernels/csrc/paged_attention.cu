@@ -33,19 +33,18 @@
 // so the sequential y_low chains of 32 keys run side by side. It uses CUDA
 // cores only: no tensor cores, no TMA.
 //
-// Bit-exactness: y_low at granularity 1 is acc = round(acc + q_d * k_d)
-// with the product and the sum each rounded to FP32 (__fmul_rn /
-// __fadd_rn, and the file is built with -fmad=false), so it matches
-// repro_torch.core.mixed_matmul.dot_ps bit for bit. round_to_mantissa is
-// bit-exact with repro_torch.core.numerics.round_to_mantissa. expf, logf,
-// sqrtf and division are the IEEE-accurate ones (never --use_fast_math):
-// they feed the selection thresholds.
+// Bit-exactness: y_low, round_to_mantissa and the selection rules are the
+// shared helpers of lamp_device.cuh (see there).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "lamp_device.cuh"
+
 namespace {
+
+using namespace lamp_dev;
 
 constexpr int CK = 32;             // keys staged per chunk: one per lane
 constexpr int NW = 4;              // warps per thread block
@@ -53,11 +52,6 @@ constexpr int QPW = 4;             // queries per warp
 constexpr int TQ = NW * QPW;       // queries per thread block
 constexpr int MAXD = 128;          // largest head dim
 constexpr int DPL = MAXD / 32;     // accumulator slots per lane
-constexpr float NEG = -1e30f;
-constexpr float TINY = 1.1754944e-38f;
-constexpr unsigned FULL = 0xffffffffu;
-
-enum Rule { RULE_NONE = 0, RULE_STRICT = 1, RULE_RELAXED = 2, RULE_RELAXED_LN = 3 };
 
 struct Params {
   const float* q;        // (B, H, W, hd)
@@ -76,50 +70,6 @@ struct Params {
   int mu, gran, rule, lamp, n_ref, window;   // window <= 0: none
   float scale;
 };
-
-__device__ __forceinline__ float round_to_mantissa(float x, int mu) {
-  if (mu >= 23) return x;
-  unsigned bits = __float_as_uint(x);
-  if ((bits & 0x7F800000u) == 0x7F800000u) return x;   // Inf / NaN
-  const int shift = 23 - mu;
-  const unsigned low = (1u << shift) - 1u;
-  const unsigned rem = bits & low;
-  const unsigned half = 1u << (shift - 1);
-  const unsigned lsb = (bits >> shift) & 1u;
-  const bool up = rem > half || (rem == half && lsb);
-  bits = (bits & ~low) + (up ? (1u << shift) : 0u);   // carry may reach the exponent
-  return __uint_as_float(bits);
-}
-
-__device__ __forceinline__ float dot_exact(const float* q, const float* k, int hd) {
-  float acc = 0.f;
-  for (int d = 0; d < hd; ++d) acc = fmaf(q[d], k[d], acc);
-  return acc;
-}
-
-// PS(mu) logit with the rounding points of dot_ps at granularity g >= 1
-// (g < hd). Granularity 0, g >= hd and mu >= 23 go through dot_exact.
-__device__ __forceinline__ float dot_low_chunked(const float* q, const float* k,
-                                                 int hd, int mu, int g) {
-  float acc = 0.f;
-  for (int s = 0; s < hd; s += g) {
-    const int e = min(s + g, hd);
-    float part = __fmul_rn(q[s], k[s]);
-    for (int d = s + 1; d < e; ++d) part = __fadd_rn(part, __fmul_rn(q[d], k[d]));
-    acc = round_to_mantissa(__fadd_rn(acc, part), mu);
-  }
-  return acc;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
-}
 
 template <bool STATS>
 __global__ void __launch_bounds__(NW * 32) paged_lamp_kernel(Params p) {
@@ -243,25 +193,9 @@ __global__ void __launch_bounds__(NW * 32) paged_lamp_kernel(Params p) {
       }
 
       if (selecting) {
-        bool sel;
-        if (p.rule == RULE_STRICT) {
-          float z = ok ? expf(y - mx[i]) : 0.f;
-          z = z / fmaxf(lx[i], TINY);
-          sel = ok && __fmul_rn(__fmul_rn(2.f * z, 1.f - z), fabsf(y)) > tau;
-        } else {
-          const float s = __fadd_rn(y, logf(fabsf(y)));
-          float thr;
-          if (p.rule == RULE_RELAXED) {
-            thr = log_tau + sx[i];
-          } else {                                  // RULE_RELAXED_LN
-            const int n_row = min(max(qi + 1, 0), cap);
-            float tau_row = __fmul_rn(tau, sqrtf(__fdiv_rn((float)p.n_ref,
-                                                           (float)max(n_row, 1))));
-            tau_row = fminf(tau_row, 0.999999f);
-            thr = logf(tau_row) + sx[i];
-          }
-          sel = ok && s > thr;
-        }
+        const int n_row = min(max(qi + 1, 0), cap);
+        const bool sel = lamp_selects(p.rule, y, ok, sx[i], mx[i], lx[i], tau,
+                                      log_tau, n_row, p.n_ref);
         st_x[i] += (float)__popc(__ballot_sync(FULL, sel));
         if (sel) y = have_exact ? exact : dot_exact(qv, kv, hd);
       }

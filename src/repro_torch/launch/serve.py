@@ -1,13 +1,15 @@
 """Serve a batch of synthetic requests with the port's LAMP engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2 --reduced \
-        --num-requests 8 --device cpu
+        --num-requests 8 --device cpu [--speculative [--draft-len 4]]
 
 Weights are random, drawn from `--seed`. Prompts of 8-48 tokens (a third of
 them opening with one shared 16-token prefix, so prefix caching has work)
 all arrive at once; every request generates 16 tokens greedily. Prints one
 line per finished request and a summary: throughput, steps, prefix-cache
-hit rate and the LAMP recompute rate. Runs on CUDA unless `--device cpu`.
+hit rate and the LAMP recompute rate; with `--speculative` also rounds,
+acceptance, tokens per round and the verify pass's recompute rate. Runs on
+CUDA unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -35,6 +37,16 @@ def main(argv=None) -> int:
     ap.add_argument("--num-requests", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-lamp", action="store_true")
+    ap.add_argument("--speculative", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="LAMP self-draft speculative decoding: draft with "
+                         "the pure low-precision forward (rule 'none'), "
+                         "verify all drafted positions in one multi-token "
+                         "LAMP forward (greedy outputs identical to "
+                         "non-speculative decoding)")
+    ap.add_argument("--draft-len", type=int, default=4,
+                    help="speculative draft tokens per sequence per round")
     args = ap.parse_args(argv)
     if args.num_requests < 1:
         ap.error("--num-requests must be >= 1")
@@ -46,7 +58,8 @@ def main(argv=None) -> int:
     params = transformer.init_params(cfg, args.seed, device=device)
     engine = LampEngine(cfg, params, EngineConfig(
         max_model_len=min(cfg.max_seq, 256), max_prefill_tokens=64,
-        device=str(device)))
+        use_lamp=not args.no_lamp, speculative=args.speculative,
+        draft_len=args.draft_len, device=str(device)))
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab, size=16).tolist()
     for i in range(args.num_requests):
@@ -69,6 +82,13 @@ def main(argv=None) -> int:
           f"prefix hit rate {s['cache_hit_rate']:.3f}, "
           f"prefill chunks {s['prefill_chunks']}, "
           f"LAMP recompute rate {s['lamp_recompute_rate']:.4f}")
+    if args.speculative:
+        acc = [o.spec_acceptance_rate for o in outs if o.spec_drafted]
+        print(f"[serve] speculative: {s['spec_rounds']} rounds, "
+              f"acceptance {s['spec_acceptance_rate']:.2%} "
+              f"(per-request mean {np.mean(acc) if acc else 0.0:.2%}), "
+              f"{s['spec_tokens_per_round']:.2f} tokens/round, "
+              f"verify recompute rate {s['verify_recompute_rate']:.4f}")
     return 0
 
 

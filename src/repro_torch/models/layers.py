@@ -1,4 +1,5 @@
-"""Shared model layers (port of ``repro/models/layers.py:27-123,326-375``).
+"""Shared model layers (port of ``repro/models/layers.py:27-123,245-306,
+326-375``).
 
 Plain functions over parameter dictionaries, in the config dtype with FP32
 islands where the JAX package has them (norm statistics, final logits).
@@ -6,10 +7,13 @@ islands where the JAX package has them (norm statistics, final logits).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.policy import LampSite
+from repro_torch.kernels import paged_attention as PA
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -74,6 +78,43 @@ def _project_qkv(cfg, p, x: torch.Tensor, positions: torch.Tensor):
         q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
         k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     return q, k, v
+
+
+def paged_attention_decode_sublayer(cfg, p, x: torch.Tensor, *, arena_k,
+                                    arena_v, block_tables, lengths,
+                                    lamp_site: LampSite,
+                                    window: Optional[int] = None, tau=None):
+    """Single-token decode against a paged KV arena (one layer).
+
+    x: (R, 1, d) hidden states; arena_k / arena_v: (n_blocks, block_size,
+    Hkv, hd), updated in place (the JAX package returns updated copies);
+    block_tables: (R, n_max) int32; lengths: (R,) int32 tokens already
+    cached -- the new token's K/V land at position lengths[r], block
+    block_tables[r, lengths // bs], offset lengths % bs, and attention runs
+    at the effective length lengths + 1. `tau` (a float32 value on the
+    device) overrides the site's threshold. Returns (out (R, 1, d),
+    n_selected (R,), n_valid (R,)); n_valid = min(lengths + 1, window) * H
+    whatever the site, as in the JAX kernel branch."""
+    R = x.shape[0]
+    H, hd = cfg.n_heads, cfg.hd
+    bs, n_max = arena_k.shape[1], block_tables.shape[1]
+    q, k, v = _project_qkv(cfg, p, x, lengths[:, None])
+    ln = lengths.long()
+    rows = torch.arange(R, device=x.device)
+    # JAX clamps an out-of-range gather index; so does this lookup
+    blk = block_tables.long()[rows, torch.clamp(ln // bs, max=n_max - 1)]
+    off = ln % bs
+    arena_k[blk, off] = k[:, 0].to(arena_k.dtype)
+    arena_v[blk, off] = v[:, 0].to(arena_v.dtype)
+    window = window if window is not None else cfg.window
+    eff = lengths + 1
+    out, nsel = PA.paged_decode_attention(
+        q.transpose(1, 2).contiguous(), arena_k, arena_v, block_tables, eff,
+        lamp_site, tau=tau, window=window)
+    cap = eff if window is None else torch.clamp(eff, max=window)
+    nval = cap.to(torch.float32) * H
+    out = out.transpose(1, 2).reshape(R, 1, H * hd).to(x.dtype)
+    return out @ p["wo"], nsel, nval
 
 
 def mlp_apply(cfg, p, x: torch.Tensor) -> torch.Tensor:

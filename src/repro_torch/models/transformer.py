@@ -1,5 +1,5 @@
-"""Decoder-only transformer: the paged serving step (port of
-``repro/models/transformer.py:30-60,316-575``).
+"""Decoder-only transformer: the paged serving steps (port of
+``repro/models/transformer.py:30-60,316-575,735-787``).
 
 Parameters are a dictionary with the JAX package's layout: every block
 tensor is stacked with a leading (L,) axis, and the layer ``lax.scan``
@@ -7,9 +7,13 @@ becomes a Python loop over those stacks. The paged KV arena is a pair of
 (L, n_blocks, block_size, Hkv, hd) tensors; block 0 is the null block that
 padding points at and writes into.
 
-Attention goes through ``kernels.paged_attention.paged_mixed_attention``:
-the hand-written CUDA kernel for tensors on the card, its plain gather
-version for tensors on the CPU.
+Window steps (`paged_mixed_step`, `paged_prefill_window`,
+`paged_verify_window`) attend through
+``kernels.paged_attention.paged_mixed_attention``; the single-token
+`paged_decode_step` of the split step and the speculative draft through
+``paged_decode_attention`` (``layers.paged_attention_decode_sublayer``).
+Each is the hand-written CUDA kernel for tensors on the card and its plain
+gather version for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -126,6 +130,58 @@ def paged_prefill_window(cfg, params, tokens, arena, block_tables, starts,
     return paged_mixed_step(cfg, params, tokens, arena, block_tables, starts,
                             lengths, use_lamp=use_lamp, per_layer=per_layer,
                             taus=taus, all_logits=False)
+
+
+def paged_verify_window(cfg, params, tokens, arena, block_tables, starts,
+                        lengths, *, use_lamp: bool = True,
+                        per_layer: bool = False, taus=None):
+    """The speculative verifier: row b runs `tokens` at absolute positions
+    starts[b] .. starts[b] + lengths[b] - 1, (re)writing their K/V, and
+    returns logits for every window position, (B, W, V) -- position j's are
+    what a plain decode step at that position would give. Logits past
+    lengths[b] are padding. See ``paged_mixed_step``."""
+    return paged_mixed_step(cfg, params, tokens, arena, block_tables, starts,
+                            lengths, use_lamp=use_lamp, per_layer=per_layer,
+                            taus=taus, all_logits=True)
+
+
+def paged_decode_step(cfg, params, arena, block_tables, lengths, tokens, *,
+                      use_lamp: bool = True, per_layer: bool = False,
+                      taus: Optional[torch.Tensor] = None):
+    """One continuous-batch decode step over the paged arena.
+
+    tokens: (R, 1) last sampled token per row; lengths: (R,) int32 cache
+    fill (the new token's K/V land at position lengths[r]; padded rows use
+    length 0 and a null block table). `taus` ((L,) float32 on the device)
+    carries the per-layer KQ thresholds; the LAMP rule comes from `cfg` (the
+    speculative draft passes its draft config). Writes the arena in place
+    and returns (logits (R, 1, V), arena, (n_selected, n_valid)): counts
+    (R,), or (L, R) with `per_layer`."""
+    L = cfg.n_layers
+    dev = tokens.device
+    x = LY.embed(cfg, params["embed"], tokens.long(), lengths.long()[:, None])
+    site = _kq_site(cfg, use_lamp)
+    if taus is None:
+        taus = torch.full((L,), float(site.tau), dtype=torch.float32, device=dev)
+    nsel_l, nval_l = [], []
+    for l in range(L):
+        p_l = layer_params(params["blocks"], l)
+        h = LY.apply_norm(cfg, x, p_l, "ln1")
+        a, nsel, nval = LY.paged_attention_decode_sublayer(
+            cfg, p_l["attn"], h, arena_k=arena["k"][l], arena_v=arena["v"][l],
+            block_tables=block_tables, lengths=lengths, lamp_site=site,
+            tau=taus[l])
+        x = x + a
+        h = LY.apply_norm(cfg, x, p_l, "ln2")
+        x = x + LY.mlp_apply(cfg, p_l["mlp"], h)
+        nsel_l.append(nsel)
+        nval_l.append(nval)
+    x = LY.apply_norm(cfg, x, {"lnf_w": params["lnf_w"],
+                               "lnf_b": params.get("lnf_b")}, "lnf")
+    nsel, nval = torch.stack(nsel_l), torch.stack(nval_l)
+    if not per_layer:
+        nsel, nval = nsel.sum(dim=0), nval.sum(dim=0)
+    return LY.unembed(cfg, params["embed"], x), arena, (nsel, nval)
 
 
 def paged_mixed_step(cfg, params, tokens, arena, block_tables, starts,

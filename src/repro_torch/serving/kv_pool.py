@@ -285,6 +285,28 @@ class PagedKVPool:
         self.cow_copies += 1
         return new
 
+    def rollback(self, block_ids: Seq[int], n_tokens: int) -> List[int]:
+        """Truncate a sequence's block list to cover exactly `n_tokens`
+        cached positions, freeing the surplus tail blocks (speculative
+        decoding rolls back the blocks that held rejected draft K/V).
+
+        Freeing only drops owners, deepest block first, so a block that
+        others share or the prefix index maps keeps its contents; a kept
+        partially filled tail block that is shared or registered is copied
+        on write, so the sequence's next writes never touch shared state.
+        Returns the kept block list; the caller must not free the surplus
+        again."""
+        keep = self.blocks_for(n_tokens)
+        if keep > len(block_ids):
+            raise ValueError(
+                f"rollback to {n_tokens} tokens needs {keep} blocks but the "
+                f"sequence owns only {len(block_ids)}")
+        kept = list(block_ids[:keep])
+        self.free_blocks(reversed(list(block_ids[keep:])))
+        if n_tokens % self.block_size and kept and self.needs_cow(kept[-1]):
+            kept[-1] = self.copy_on_write(kept[-1])
+        return kept
+
     def needs_cow(self, b: int) -> bool:
         return self.refcount.get(b, 0) > 1 or b in self._block_to_hash
 

@@ -1,6 +1,6 @@
 """Request/Sequence lifecycle objects for the continuous-batching engine
 (a copy of ``repro/serving/request.py`` without the fields of the parts not
-ported yet: speculative decoding, shadow audit, deadlines).
+ported yet: shadow audit, deadlines).
 
 A `Sequence` tracks one request through
     WAITING -> PREFILL -> DECODE -> FINISHED
@@ -34,7 +34,8 @@ class SamplingParams:
     seed: int = 0                   # per-request sampling stream
     stop_token: Optional[int] = None
     top_k: int = 0                  # 0 = unfiltered; else sample from the
-                                    # top-k logits only
+                                    # top-k logits only (also the filter the
+                                    # speculative accept rule scores against)
 
 
 @dataclasses.dataclass
@@ -104,6 +105,10 @@ class Sequence:
         # per-chunk registration does not rehash the whole prefix
         self.prefix_hashes: List[int] = []
         self.num_preemptions = 0
+        # speculative decoding: tokens this request drafted and how many of
+        # those drafts the verifier accepted (across all rounds)
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         self.first_token_time: Optional[float] = None
         self.finish_time: Optional[float] = None
         self.finish_reason: Optional[str] = None
@@ -140,6 +145,12 @@ class Sequence:
     def total_len(self) -> int:
         """Max cache positions this request can ever need."""
         return len(self.prompt) + self.sampling.max_new_tokens
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the verifier accepted (in [0, 1])."""
+        return (self.spec_accepted / self.spec_drafted
+                if self.spec_drafted else 0.0)
 
     def on_token(self, token: int, now: float) -> None:
         if self.first_token_time is None:

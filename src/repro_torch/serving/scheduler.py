@@ -1,5 +1,5 @@
 """Continuous-batching scheduler (port of ``repro/serving/scheduler.py``,
-fused mixed plans only, no speculative drafts, no observability hooks).
+fused mixed plans only, no observability hooks).
 
 Policy (vLLM-v0 style, adapted to fixed-shape buckets):
 
@@ -11,10 +11,18 @@ Policy (vLLM-v0 style, adapted to fixed-shape buckets):
     lands mid-block copies that block on write before the sequence may fill
     its tail.
   * Every step is one mixed plan: prefill windows first (chunk continuation
-    and admission), then decode rows, each one token. The JAX package's
-    phase-segregated plans and speculative draft budgets wait for a later
-    slice; plans still carry `draft_lens` (all 0) and `roles`, so a plan
-    stream compares one to one with the JAX scheduler's.
+    and admission), then decode rows, each one token plus its draft budget.
+    The JAX package's phase-segregated plans are not ported: the engine's
+    split twin runs these same mixed plans through per-phase sub-steps.
+    Plans carry `draft_lens` and `roles`, so a plan stream compares one to
+    one with the JAX scheduler's.
+  * Speculative decoding (`spec_draft_len` > 0): each decode row gets a
+    draft budget, oldest first, out of what the prefill windows left of the
+    token budget (the verify pass is a (kd + 1)-token window, the compute
+    shape of a prefill chunk), capped by the request's own token limit.
+    Block demand covers the whole speculative span (cache_len .. cache_len
+    + kd); under pressure the scheduler sheds draft lookahead before it
+    preempts anyone, so speculation can never deadlock the pool.
   * Chunked prefill: a prompt prefills in `max_prefill_tokens`-sized chunks
     across steps (the per-sequence `prefill_cursor` tracks progress).
     Blocks are allocated per chunk, not for the whole prompt up front.
@@ -46,24 +54,27 @@ class StepPlan:
     kind: str                  # always "mixed" in the port
     seqs: List[Sequence]
     # live tokens each row runs this step: the chunk window starting at
-    # prefill_cursor for prefill rows, 1 for decode rows
+    # prefill_cursor for prefill rows, 1 + draft_lens[i] for decode / verify
+    # rows (the verify span, bonus position included)
     windows: Optional[List[int]] = None
-    # tokens each sequence may draft this round: always 0 (no speculative
-    # decoding in the port yet)
+    # tokens each sequence may draft this round (0 = plain decode; always 0
+    # for prefill rows and without speculative decoding)
     draft_lens: Optional[List[int]] = None
-    # per-row role: "prefill" (chunk window) or "decode" (next-token row)
+    # per-row role: "prefill" (chunk window), "decode" (plain next-token
+    # row) or "verify" (speculative round with draft_lens[i] > 0)
     roles: Optional[List[str]] = None
 
 
 class Scheduler:
     def __init__(self, pool: PagedKVPool, *, max_prefill_batch: int = 8,
                  max_prefill_tokens: int = 2048, max_decode_batch: int = 32,
-                 chunked_prefill: bool = False):
+                 chunked_prefill: bool = False, spec_draft_len: int = 0):
         self.pool = pool
         self.max_prefill_batch = max_prefill_batch
         self.max_prefill_tokens = max_prefill_tokens
         self.max_decode_batch = max_decode_batch
         self.chunked_prefill = chunked_prefill
+        self.spec_draft_len = spec_draft_len
         self.waiting: Deque[Sequence] = deque()
         self.running: List[Sequence] = []
         self.num_preemptions = 0
@@ -248,26 +259,49 @@ class Scheduler:
                 self.running.append(seq)
         return StepPlan("prefill", batch, windows)
 
+    def _grant_draft_budgets(self, batch: List[Sequence],
+                             budget: int) -> List[int]:
+        """Per-sequence draft budget for this round, oldest first (`batch`
+        is oldest-first): sum(kd) is capped at `budget`, what the plan's
+        prefill windows left of the token budget after one position per
+        decode row, and no sequence drafts past its own token limit (the
+        round emits at most kd + 1 tokens)."""
+        if self.spec_draft_len <= 0:
+            return [0] * len(batch)
+        out = []
+        for seq in batch:
+            kd = min(self.spec_draft_len, budget,
+                     max(0, seq.sampling.max_new_tokens
+                         - seq.num_generated - 1))
+            out.append(kd)
+            budget -= kd
+        return out
+
     def _mixed_decode_part(self, pre_seqs: List[Sequence],
-                           pre_windows: List[int]) -> List[Sequence]:
-        """Decode rows of a mixed plan: every decoding sequence, oldest
-        first, up to max_decode_batch, with blocks for its next-token KV
-        write. Preemption protects the oldest plan member overall; one that
-        evicts one of this very plan's prefill rows drops that row from the
-        plan (its blocks are already freed and the sequence is requeued;
-        nothing has run yet)."""
+                           pre_windows: List[int]):
+        """Decode / verify rows of a mixed plan: every decoding sequence,
+        oldest first, up to max_decode_batch, with its draft budget and
+        blocks for its next-token and speculative K/V writes. Under block
+        pressure draft budgets shrink by one per row before anyone is
+        preempted. Preemption protects the oldest plan member overall; one
+        that evicts one of this very plan's prefill rows drops that row from
+        the plan (its blocks are already freed and the sequence is
+        requeued; nothing has run yet). Returns (rows, draft_lens)."""
         while True:
             ready = [s for s in self.running
                      if s.status == SequenceStatus.DECODE]
             if not ready:
-                return []
+                return [], []
             batch = sorted(ready, key=lambda s: s.arrival_time
                            )[:self.max_decode_batch]
+            budget = max(0, self.max_prefill_tokens - sum(pre_windows)
+                         - len(batch))
+            draft_lens = self._grant_draft_budgets(batch, budget)
             while True:
                 deficits = []
                 need = 0
-                for seq in batch:
-                    want = self.pool.blocks_for(seq.cache_len + 1)
+                for seq, kd in zip(batch, draft_lens):
+                    want = self.pool.blocks_for(seq.cache_len + 1 + kd)
                     deficits.append(max(0, want - len(seq.block_ids)))
                     need += deficits[-1]
                 if need <= self.pool.num_free:
@@ -280,7 +314,12 @@ class Scheduler:
                         # owned; the recomputed deficits skip them
                         self.alloc_fault_degrades += 1
                         continue
-                    return batch
+                    return batch, draft_lens
+                if any(draft_lens):
+                    # shed speculative lookahead before evicting anyone: a
+                    # shorter draft is strictly cheaper than a recompute
+                    draft_lens = [max(0, kd - 1) for kd in draft_lens]
+                    continue
                 keep = min(pre_seqs + batch, key=lambda s: s.arrival_time)
                 if self._preempt_youngest(keep=keep):
                     for i in range(len(pre_seqs) - 1, -1, -1):
@@ -293,14 +332,15 @@ class Scheduler:
 
     def schedule(self) -> Optional[StepPlan]:
         """One fused step: prefill windows first (chunk continuation +
-        admission, exactly `_try_prefill`), then decode rows -- all in a
-        single mixed StepPlan. Prefill-first plus FCFS admission and oldest-protected preemption
+        admission, exactly `_try_prefill`), then decode / verify rows
+        funded by the leftover token budget -- all in a single mixed
+        StepPlan. Prefill-first plus FCFS admission and oldest-protected preemption
         preserves the split scheduler's no-starvation guarantee; decode
         rows cost one token each regardless, so they always ride along."""
         pre = self._try_prefill()
         pre_seqs = list(pre.seqs) if pre is not None else []
         pre_windows = list(pre.windows) if pre is not None else []
-        dec_batch = self._mixed_decode_part(pre_seqs, pre_windows)
+        dec_batch, draft_lens = self._mixed_decode_part(pre_seqs, pre_windows)
         if not pre_seqs and not dec_batch:
             prefill_work = bool(self.waiting) or any(
                 s.status == SequenceStatus.PREFILL for s in self.running)
@@ -319,12 +359,12 @@ class Scheduler:
             if not pre_seqs:
                 raise RuntimeError(
                     "KV pool too small for a single sequence; raise n_blocks")
-        n = len(pre_seqs) + len(dec_batch)
         return StepPlan(
             "mixed", pre_seqs + dec_batch,
-            windows=pre_windows + [1] * len(dec_batch),
-            draft_lens=[0] * n,
-            roles=["prefill"] * len(pre_seqs) + ["decode"] * len(dec_batch))
+            windows=pre_windows + [1 + kd for kd in draft_lens],
+            draft_lens=[0] * len(pre_seqs) + draft_lens,
+            roles=(["prefill"] * len(pre_seqs)
+                   + ["verify" if kd else "decode" for kd in draft_lens]))
 
     def finish(self, seq: Sequence) -> None:
         """Release a finished sequence's resources. Registered prefix blocks

@@ -1,4 +1,5 @@
-"""The CUDA paged LAMP attention kernel against its plain version, on a card.
+"""The CUDA paged LAMP attention kernels (mixed rows and decode) against
+their plain versions, on a card.
 
 These tests import no JAX (the machine with the card has none), so they run
 there with the repository's conftest left out:
@@ -111,3 +112,81 @@ def test_kernel_skips_poisoned_dead_blocks(cuda_device):
     live = torch.from_numpy(live_mask(qlens)).to(dev)[:, None, :].expand(-1, H, -1)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out[live], ref[live], **TOL)
+
+
+# decode: effective lengths 1, 16 (a block edge), 37, 100 and 191 (ragged
+# across blocks), and a pad row (length 1 in the null block); GPT-2 small's
+# head shape, and a GQA arena
+DEC_LENGTHS = (1, 16, 37, 100, 191, 1)
+
+
+def make_decode_case(seed, lengths, H=12, HKV=12, HD=64, BS=16, N_MAX=12):
+    rng = np.random.default_rng(seed)
+    R = len(lengths)
+    n_blocks = 1 + R * N_MAX
+    k = (rng.standard_normal((n_blocks, BS, HKV, HD)) * 1.5).astype(np.float32)
+    v = rng.standard_normal((n_blocks, BS, HKV, HD)).astype(np.float32)
+    perm = rng.permutation(np.arange(1, n_blocks))
+    bt = np.zeros((R, N_MAX), np.int32)
+    for r in range(R - 1):                    # the last row is padding
+        nb = -(-lengths[r] // BS)
+        bt[r, :nb] = perm[r * N_MAX:r * N_MAX + nb]
+    q = (rng.standard_normal((R, H, 1, HD)) * 1.5).astype(np.float32)
+    return q, k, v, bt, np.asarray(lengths, np.int32)
+
+
+def check_decode_counts(got, want, name):
+    if name in ("strict-g1", "relaxed-g0"):
+        np.testing.assert_allclose(got, want, atol=1)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SITES))
+def test_decode_kernel_matches_plain_on_card(cuda_device, name):
+    """Every site, on a full-head and a GQA arena, with and without a window
+    of 40 (which cuts rows 100 and 191 mid-block)."""
+    site = LampSite(**SITES[name])
+    for hkv, window in ((12, None), (12, 40), (4, None), (4, 40)):
+        case = make_decode_case(5, DEC_LENGTHS, HKV=hkv)
+        args = [torch.from_numpy(a).to(cuda_device) for a in case]
+        before = PA.paged_decode_attention.launches
+        out, nsel = PA.paged_decode_attention(*args, site, window=window)
+        torch.cuda.synchronize()
+        assert PA.paged_decode_attention.launches == before + PA.passes(site)
+        ref, nref = PA.paged_decode_attention_plain(*args, site, window=window)
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ref, **TOL)
+        check_decode_counts(nsel.cpu().numpy(), nref.cpu().numpy(), name)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_skips_poisoned_dead_blocks(cuda_device):
+    q, k, v, bt0, lengths = make_decode_case(6, DEC_LENGTHS)
+    # one extra block, in no row's live span: every dead table entry (past
+    # the length, and before the window) points at it
+    poison = k.shape[0]
+    k = np.concatenate([k, np.zeros_like(k[:1])])
+    v = np.concatenate([v, np.zeros_like(v[:1])])
+    k_bad, v_bad = k.copy(), v.copy()
+    k_bad[poison] = np.nan
+    v_bad[poison] = np.nan
+    bs = k.shape[1]
+    t = lambda a: torch.from_numpy(a).to(cuda_device)
+    for window in (None, 40):
+        bt = bt0.copy()
+        for r in range(len(lengths) - 1):
+            L = int(lengths[r])
+            bt[r, -(-L // bs):] = poison
+            if window is not None:
+                bt[r, :max(L - window, 0) // bs] = poison
+        for name in ("relaxed-g1", "strict-g1"):
+            site = LampSite(**SITES[name])
+            out, nsel = PA.paged_decode_attention(
+                t(q), t(k_bad), t(v_bad), t(bt), t(lengths), site, window=window)
+            ref, nref = PA.paged_decode_attention_plain(
+                t(q), t(k), t(v), t(bt), t(lengths), site, window=window)
+            assert torch.isfinite(out).all()
+            torch.testing.assert_close(out, ref, **TOL)
+            check_decode_counts(nsel.cpu().numpy(), nref.cpu().numpy(), name)
