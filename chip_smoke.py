@@ -21,6 +21,16 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            the same shapes: ragged effective lengths (1, a block edge,
            mid-block, a window cutting mid-block), every site, a GQA arena
            (4 KV heads), a pad row, and NaN-poisoned dead blocks
+  micro    the kernel micro-benchmark (repro_torch.launch.kernels_micro,
+           --full-width, in this process): lamp_flash_attention,
+           flash_decode, the paged decode gather path and kernel, ps_matmul
+           and rmsnorm at the JAX micro-benchmark's shapes, and the four
+           micro kernels again at a model's full width (GPT-2 small prefill
+           attention, an 8-row GPT-2 small decode, GPT-2 small's MLP
+           up-projection, Gemma-7B's RMSNorm); each kernel against its plain
+           version (NaN past each decode row's length), timed against the
+           plain version and a PyTorch yardstick; launch counts must equal
+           the run's calls x passes
   step     one full-width GPT-2 small paged_mixed_step through the kernel
            and through the plain version, on the same arena and plan
   engine   the GPT-2 small LampEngine on the card serving 8 greedy requests
@@ -37,7 +47,8 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
   profile  the fused speculative run under torch.profiler: device busy
            time and idle share, the kernels that take the most device time
   kernels  per kernel: launches in the main-path runs, its time at the most
-           common bucket against its bound and its plain version
+           common bucket (the micro kernels: at full width) against its
+           bound, its plain version and its PyTorch yardstick
 
 and last the line {"ok": true, "device": {...}}. Weights are random, drawn
 from a seed.
@@ -308,6 +319,49 @@ def phase_decode_kernel():
          tolerance={**TOL, "count_slack": COUNT_SLACK}, results=results)
     require(all(r["ok"] for r in results.values()),
             f"decode kernel disagrees with its plain version: {results}")
+
+
+# the micro kernels: wrapper name -> (source, the TPU kernel it replaces,
+# the micro run's full-width row); each runs twice in the micro run (its
+# micro row and its full-width row), flash_decode with two passes a call
+MICRO_KERNELS = {
+    "lamp_flash_attention": ("src/repro_torch/kernels/csrc/lamp_attention.cu",
+                             "src/repro/kernels/lamp_attention.py:106", 0),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode.py:109", 1),
+    "ps_matmul": ("src/repro_torch/kernels/csrc/ps_matmul.cu",
+                  "src/repro/kernels/ps_matmul.py:46", 2),
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:25", 3),
+}
+MICRO_LAUNCHES = {"lamp_flash_attention": 2, "flash_decode": 4,
+                  "paged_decode_attention": 2, "ps_matmul": 2, "rmsnorm": 2}
+
+
+def phase_micro():
+    """The port's kernel micro-benchmark, full width included, as its main
+    path: every wrapper's count set to 0 just before and read just after."""
+    from repro_torch.launch import kernels_micro as KM
+    for w in KM.WRAPPERS.values():
+        w.launches = 0
+    rows = KM.run(DEVICE, full_width=True)
+    launches = {n: w.launches for n, w in KM.WRAPPERS.items()}
+    for r in rows:
+        emit("micro", **r)
+    emit("micro_launches", launches=launches, expected=MICRO_LAUNCHES)
+    require(all(r["ok"] for r in rows),
+            "a micro kernel disagrees with its plain version: "
+            f"{[r['name'] for r in rows if not r['ok']]}")
+    require(launches == MICRO_LAUNCHES, f"micro launches {launches}")
+    out = []
+    for name, (source, replaces, i) in MICRO_KERNELS.items():
+        r = next(r for r in rows if r["name"] == KM.FULL_WIDTH_NAMES[i])
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": r["max_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    return out
 
 
 def gpt2_small():
@@ -845,6 +899,7 @@ def main() -> int:
     phase_round()
     phase_kernel()
     phase_decode_kernel()
+    micro_rows = phase_micro()
     cfg = gpt2_small()
     params = TT.init_params(cfg, 0, device=DEVICE)
     phase_step(params, cfg)
@@ -856,7 +911,7 @@ def main() -> int:
         (launches + spec_launches["mixed"], bucket, captured),
         (spec_launches["decode"], dbucket, dcaptured))
     emit("done", seconds=time.perf_counter() - t0)
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": rows + micro_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

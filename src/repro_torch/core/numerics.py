@@ -20,6 +20,13 @@ _EXP_MASK = 0x7F800000
 _U32 = 0xFFFFFFFF
 
 
+def check_mu(mu) -> None:
+    """A kernel's static mantissa width: an int >= 1 (mu >= 23 keeps FP32,
+    as in the JAX kernels). The CUDA kernels take it unchecked."""
+    if not isinstance(mu, int) or mu < 1:
+        raise ValueError(f"mu must be an int >= 1, got {mu!r}")
+
+
 def round_to_mantissa(x: torch.Tensor, mu: int) -> torch.Tensor:
     """Round FP32 `x` to `mu` mantissa bits with round-to-nearest-ties-to-even.
 

@@ -43,6 +43,19 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lamp_paged_decode_attention": (
             [_P] * 11 + [_I] * 12 + [_F, _I, _P], _I),
     },
+    "flash_decode.cu": {
+        "lamp_flash_decode": ([_P] * 7 + [_I] * 6 + [_F, _F, _I, _P], _I),
+    },
+    "lamp_attention.cu": {
+        "lamp_flash_attention": ([_P] * 5 + [_I] * 8 + [_F, _F, _P], _I),
+        "lamp_flash_attention_smem": ([_I, _I], _LL),
+    },
+    "ps_matmul.cu": {
+        "lamp_ps_matmul": ([_P] * 3 + [_I] * 5 + [_P], _I),
+    },
+    "rmsnorm.cu": {
+        "lamp_rmsnorm": ([_P] * 3 + [_LL, _I, _I, _F, _P], _I),
+    },
 }
 
 _lock = threading.Lock()
@@ -95,6 +108,13 @@ def build_all() -> None:
     with ThreadPoolExecutor(max_workers=len(sources)) as ex:
         for fut in [ex.submit(_compile, s) for s in sources]:
             fut.result()
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise if a kernel launch returned a CUDA error (0 = cudaSuccess): a
+    refused launch never runs, and no later synchronize reports it."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed to launch: CUDA error {err}")
 
 
 def load(source: str) -> ctypes.CDLL:

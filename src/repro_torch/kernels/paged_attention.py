@@ -39,6 +39,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.attention import (attention_lamp, attention_reference,
@@ -330,3 +331,22 @@ def paged_decode_attention(q, arena_k, arena_v, block_tables, lengths,
 
 paged_decode_attention.launches = 0
 _decode_wrapper = paged_decode_attention
+
+
+def decode_kv_bytes(lengths, *, n_max: int, block_size: int,
+                    bytes_per_token: int, window: Optional[int] = None,
+                    lamp: bool = True) -> Tuple[int, int]:
+    """(gather_bytes, fused_bytes) of KV traffic for one decode step of one
+    layer (port of ``repro/kernels/paged_attention.py::decode_kv_bytes``):
+    the gather path materializes every row's full block-table span (K and
+    V); the kernel reads only live blocks, and a LAMP statistics pass
+    re-reads K, so fused = live blocks x (2K + V) with LAMP on.
+    ``bytes_per_token`` = Hkv * hd * itemsize."""
+    L = np.maximum(np.asarray(lengths, np.int64), 1)
+    gather = int(L.size) * n_max * block_size * bytes_per_token * 2
+    lo = (np.maximum(L - window, 0) // block_size if window is not None
+          else np.zeros_like(L))
+    hi = (L - 1) // block_size
+    live = int((hi - lo + 1).sum())
+    fused = live * block_size * bytes_per_token * (3 if lamp else 2)
+    return gather, fused

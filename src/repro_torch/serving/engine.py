@@ -324,6 +324,11 @@ class LampEngine:
         seq.cache_len += appended
         self.spec_emitted += appended
         seq.block_ids = self.pool.rollback(seq.block_ids, seq.cache_len)
+        # the kept tail was written by this round's verify window, in blocks
+        # the draft budget allocated privately past every registered prefix
+        # block, so rollback never has to drop it for want of a COW block
+        assert len(seq.block_ids) * self.pool.block_size >= seq.cache_len, \
+            "rollback dropped a verified tail block"
 
     # -- the fused step -----------------------------------------------------
 

@@ -291,11 +291,21 @@ class PagedKVPool:
         decoding rolls back the blocks that held rejected draft K/V).
 
         Freeing only drops owners, deepest block first, so a block that
-        others share or the prefix index maps keeps its contents; a kept
-        partially filled tail block that is shared or registered is copied
-        on write, so the sequence's next writes never touch shared state.
-        Returns the kept block list; the caller must not free the surplus
-        again."""
+        others share or the prefix index maps keeps its contents. The kept
+        partially filled tail block (the sequence's next write lands in it)
+        must end up private and unregistered, and that never raises:
+
+          * owned by this sequence alone but registered: it leaves the
+            prefix index (its content is about to change), no block needed;
+          * shared with another live sequence: copied on write when a block
+            can be had (free, or a cached-free one evicted, as `alloc`
+            does); when none can, the tail is dropped too and only the full
+            blocks below `n_tokens` are kept.
+
+        Here the port departs from the JAX pool, whose rollback raises
+        "KV pool exhausted" in the last case. Returns the kept block list:
+        the caller's cache length becomes ``min(n_tokens, len(kept) *
+        block_size)``; the caller must not free the surplus again."""
         keep = self.blocks_for(n_tokens)
         if keep > len(block_ids):
             raise ValueError(
@@ -303,8 +313,15 @@ class PagedKVPool:
                 f"sequence owns only {len(block_ids)}")
         kept = list(block_ids[:keep])
         self.free_blocks(reversed(list(block_ids[keep:])))
-        if n_tokens % self.block_size and kept and self.needs_cow(kept[-1]):
-            kept[-1] = self.copy_on_write(kept[-1])
+        if not (n_tokens % self.block_size and kept):
+            return kept
+        tail = kept[-1]
+        if self.refcount[tail] == 1:
+            self._unregister(tail)
+        elif self.num_free:
+            kept[-1] = self.copy_on_write(tail)
+        else:
+            self.free_blocks([kept.pop()])
         return kept
 
     def needs_cow(self, b: int) -> bool:

@@ -22,6 +22,9 @@ import importlib, pkgutil, sys
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
+micro = {"repro_torch.kernels." + m for m in
+         ("flash_decode", "lamp_attention", "ps_matmul", "rmsnorm")}
+assert micro | {"repro_torch.launch.kernels_micro"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
