@@ -10,7 +10,9 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
   build    nvcc builds every kernel source (one nvcc per source, in parallel)
   round    the kernels' __device__ round_to_mantissa against the PyTorch
            version: random values, ties, carries, subnormals, Inf, NaN;
-           bit-exact
+           bit-exact; and ps_matmul's tf32 split: bit-exact with
+           cvt.rna.tf32.f32 on the finite values, its flag raised exactly
+           on NaN, Inf and a hi rounded past FLT_MAX
   kernel   paged_mixed_attention on the card against its plain PyTorch
            version at GPT-2 small's shapes (12 heads, hd 64, block 16),
            mixed rows (qlen 1, 5, 64, 128) at ragged starts, for LAMP off,
@@ -131,7 +133,8 @@ def phase_round():
         [0x3F800000 + (1 << 15), 0x3F800000 + (3 << 15),      # ties
          0x3FFFFFFF, 0x7F7FFFFF,                              # carries
          0x00000001, 0x007FFFFF, 0x807FFFFF, 0x80000000,      # subnormals
-         0x7F800000, 0xFF800000, 0x7FC00000, 0x7F800001],     # Inf, NaN
+         0x7F800000, 0xFF800000, 0x7FC00000, 0x7F800001,      # Inf, NaN
+         0x7FFFFFFF, 0xFFFFFFFF],
         np.uint32).view(np.int32)).view(torch.float32)
     x = torch.cat([wide, bits, special])
     mismatches = {}
@@ -139,8 +142,19 @@ def phase_round():
         want = round_to_mantissa(x, mu).view(torch.int32)
         got = round_to_mantissa_device(x.to(DEVICE), mu).cpu().view(torch.int32)
         mismatches[mu] = int((got != want).sum())
-    emit("round", n=int(x.numel()), mismatches=mismatches)
+    # ps_matmul's tf32 split (integer rounding) against cvt.rna.tf32.f32,
+    # and its flag: raised on NaN, Inf and a hi rounded past FLT_MAX
+    from repro_torch.kernels.ps_matmul import tf32_split_device
+    split = tf32_split_device(x.to(DEVICE)).cpu()
+    fin = torch.isfinite(x)
+    hi_cvt = split[:, 2].contiguous().view(torch.float32)
+    flag = ~fin | ~torch.isfinite(hi_cvt)
+    split_mismatches = int((split[fin, :2] != split[fin, 2:4]).sum()) + \
+        int((split[:, 4].bool() != flag).sum())
+    emit("round", n=int(x.numel()), mismatches=mismatches,
+         tf32_split_mismatches=split_mismatches)
     require(not any(mismatches.values()), f"round_to_mantissa differs: {mismatches}")
+    require(split_mismatches == 0, f"tf32 split differs: {split_mismatches}")
 
 
 SITES = {

@@ -52,6 +52,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "ps_matmul.cu": {
         "lamp_ps_matmul": ([_P] * 3 + [_I] * 5 + [_P], _I),
+        "lamp_tf32_split": ([_P, _P, _LL, _P], _I),
     },
     "rmsnorm.cu": {
         "lamp_rmsnorm": ([_P] * 3 + [_LL, _I, _I, _F, _P], _I),

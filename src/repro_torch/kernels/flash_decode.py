@@ -4,18 +4,21 @@ flash_decode`` (Pallas bodies ``_smax_kernel`` and ``_decode_kernel``).
 
 One query per (batch, head) against a (B, H, S, D) cache whose valid keys
 are [0, length[b]). y_low is q . k summed in chunks of ``k_subtile`` lanes,
-the running sum rounded to PS(mu) after each chunk (unrounded at mu >= 23);
-pass 1 takes smax = max(y + log|y|) over the valid keys, pass 2 selects
-y + log|y| > log(max(tau, 1e-30)) + smax, recomputes those logits in FP32
-and attends. A row of length 0 gives 0.
+each chunk lane by lane in k order, the running sum rounded to PS(mu) after
+each chunk (unrounded at mu >= 23); pass 1 takes smax = max(y + log|y|)
+over the valid keys, pass 2 selects y + log|y| > log(max(tau, 1e-30)) +
+smax, recomputes those logits in FP32 and attends. A row of length 0
+gives 0.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/flash_decode.cu``, two launches, one thread block per (b, h); keys
 past length[b] are never read) or raises; on a CPU tensor it runs
-``flash_decode_plain``. bfloat16 inputs are widened to float32 by the
-wrapper before the launch (exact, one extra pass over the cache). What
-bounds the kernel on the H100: bytes (the valid K rows twice, V once) and
-the CUDA-core work of y_low.
+``flash_decode_plain``, which sums y_low in the kernel's order
+(``core.mixed_matmul.slab_sums``), so the two select the same keys.
+bfloat16 inputs are widened to float32 by the wrapper before the launch
+(exact, one extra pass over the cache). What bounds the kernel on the
+H100: bytes (the valid K rows twice, V once) and the CUDA-core work of
+y_low.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.mixed_matmul import dot_ps
+from repro_torch.core.mixed_matmul import slab_sums
 from repro_torch.core.numerics import check_mu
 
 NEG = -1e30
@@ -61,14 +64,15 @@ def flash_decode_plain(q, k_cache, v_cache, length, *, mu: int = 7,
                        k_subtile: int = 32, reduce: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version (``kernels/ref.py::flash_decode_ref``),
-    vectorized over batch and heads; y_low from ``dot_ps`` at granularity
-    `k_subtile`. Returns (out (B, H, 1, D) float32, n_selected: a float32
-    scalar, or (B, H) per row with reduce=False)."""
+    vectorized over batch and heads; y_low from ``slab_sums`` in chunks of
+    `k_subtile` lanes (the kernel's order). Returns (out (B, H, 1, D)
+    float32, n_selected: a float32 scalar, or (B, H) per row with
+    reduce=False)."""
     S = _check(q, k_cache, v_cache, block_k, k_subtile)
     D = q.shape[-1]
     qf = q.float() * D ** -0.5
     kt = k_cache.float().transpose(-1, -2)
-    y_low = dot_ps(qf, kt, mu, granularity=k_subtile)          # (B, H, 1, S)
+    y_low = slab_sums(qf, kt, mu, k_subtile)                   # (B, H, 1, S)
     ok = (torch.arange(S, device=q.device)[None, :]
           < length.to(q.device).long()[:, None])[:, None, None, :]
     s = torch.where(ok, y_low + torch.log(y_low.abs()), NEG)

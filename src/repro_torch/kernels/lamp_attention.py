@@ -2,21 +2,23 @@
 the TPU kernel ``repro/kernels/lamp_attention.py::lamp_flash_attention``
 (Pallas body ``_kernel``).
 
-y_low is q . k summed in chunks of ``k_subtile`` lanes, the running sum
-rounded to PS(mu) after each chunk (unrounded at mu >= 23). The keys of
-k-block ik (``block_k`` keys) are selected against the running row max of
-s = y + log|y| over k-blocks 0..ik -- one pass, so early blocks can only
-over-select against the two-pass rule -- and the selected logits are
-recomputed in FP32. Causal or not.
+y_low is q . k summed in chunks of ``k_subtile`` lanes, each chunk lane by
+lane in k order, the running sum rounded to PS(mu) after each chunk
+(unrounded at mu >= 23). The keys of k-block ik (``block_k`` keys) are
+selected against the running row max of s = y + log|y| over k-blocks
+0..ik -- one pass, so early blocks can only over-select against the
+two-pass rule -- and the selected logits are recomputed in FP32. Causal or
+not.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/lamp_attention.cu``: 16 query rows per thread block, each k-block
 in two phases, y_low and the running max first, then selection, recompute
 and online softmax) or raises; on a CPU tensor it runs
-``lamp_flash_attention_plain``. bfloat16 inputs are widened to float32 by
-the wrapper before the launch (exact, one extra pass over q, k and v). What
-bounds the kernel on the H100: the CUDA-core work of y_low and P.V per
-causal (query, key) pair.
+``lamp_flash_attention_plain``, which sums y_low in the kernel's order
+(``core.mixed_matmul.slab_sums``), so the two select the same keys.
+bfloat16 inputs are widened to float32 by the wrapper before the launch
+(exact, one extra pass over q, k and v). What bounds the kernel on the
+H100: the CUDA-core work of y_low and P.V per causal (query, key) pair.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.mixed_matmul import dot_ps
+from repro_torch.core.mixed_matmul import slab_sums
 from repro_torch.core.numerics import check_mu
 
 from .flash_decode import NEG, log_tau
@@ -56,17 +58,17 @@ def lamp_flash_attention_plain(q, k, v, *, mu: int = 7, tau: float = 0.05,
                                reduce: bool = True
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version (``kernels/ref.py::lamp_flash_attention_ref``),
-    vectorized over batch, heads and query rows: y_low from ``dot_ps`` at
-    granularity `k_subtile`, the running max as a cumulative max of the
-    per-k-block row maxima, and the softmax taken whole (equal to the online
-    one up to roundoff). Returns (out (B, H, T, D) float32, n_selected: a
+    vectorized over batch, heads and query rows: y_low from ``slab_sums``
+    in chunks of `k_subtile` lanes (the kernel's order), the running max as
+    a cumulative max of the per-k-block row maxima, and the softmax taken
+    whole (equal to the online one up to roundoff). Returns (out (B, H, T, D) float32, n_selected: a
     float32 scalar, or (B, H, T) per query row with reduce=False)."""
     _, bk = _check(q, k, v, block_q, block_k, k_subtile)
     B, H, T, D = q.shape
     S = k.shape[2]
     qf = q.float() * D ** -0.5
     kt = k.float().transpose(-1, -2)
-    y_low = dot_ps(qf, kt, mu, granularity=k_subtile)          # (B, H, T, S)
+    y_low = slab_sums(qf, kt, mu, k_subtile)                   # (B, H, T, S)
     if causal:
         ok = torch.arange(S, device=q.device)[None, :] <= \
             torch.arange(T, device=q.device)[:, None]

@@ -5,16 +5,23 @@
 PS(mu) after the FP32 partial sum of every ``block_k`` slab of K is added
 (no rounding at mu >= 23). On a CUDA tensor the wrapper launches the
 hand-written kernel (``csrc/ps_matmul.cu``: 64 x 64 output tiles on the
-CUDA cores, each slab summed lane by lane in k order) or raises; on a CPU
-tensor it runs ``ps_matmul_plain``, which spells the kernel's order
-(``slab_sums``), so the two agree bit for bit. bfloat16 inputs are widened
+tensor cores, each slab summed in 3xTF32 by ``mma.sync``) or raises; on a
+CPU tensor it runs ``ps_matmul_plain``, which sums each slab lane by lane
+in k order (``core.mixed_matmul.slab_sums``). bfloat16 inputs are widened
 to float32 by the wrapper before the launch (exact, but one extra pass over
-the inputs). What bounds the kernel on the H100: its 2 M N K FP32
-operations.
+the inputs). What bounds the kernel on the H100: its 3 x 2 M N K
+operations at the dense TF32 rate.
 
-Against the JAX kernel the order inside a slab differs (XLA's dot): where
-that sum sits on a PS(mu) rounding midpoint, an output can move by one
-PS(mu) step (tests/test_torch_micro_kernels.py counts them).
+The kernel sums a slab in the tensor cores' order, the plain version and
+the JAX kernel (XLA's dot) each in their own: where a running accumulator
+sits on a PS(mu) rounding midpoint, the FP32 roundoff between two orders
+tips it one PS(mu) step apart, and the step carries to the output. Such
+outputs are few, each within 2^(1-mu) (|A| @ |B|)
+(``launch/kernels_micro.py`` and tests/test_torch_ps_matmul_card.py hold
+the kernel to that; tests/test_torch_micro_kernels.py the plain version
+against JAX). NaN and Inf operands give the plain version's NaN and Inf:
+a warp that meets one sums its outputs again in the plain version's
+order.
 """
 
 from __future__ import annotations
@@ -23,33 +30,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.numerics import check_mu, round_to_mantissa
-
-
-def slab_sums(a: torch.Tensor, b: torch.Tensor, mu: int,
-              granularity: int) -> torch.Tensor:
-    """Batched (..., M, K) @ (..., K, N) -> (..., M, N) float32 in the CUDA
-    kernels' order: inside each slab of `granularity` lanes every product
-    and every sum is rounded to FP32, k ascending, from a zero partial; the
-    running accumulator is rounded to PS(mu) after each slab is added (not
-    at mu >= 23). ps_matmul's plain version, and y_low as the attention
-    kernels sum it lane by lane (``dot_low_chunked``)."""
-    a = a.float()
-    b = b.float()
-    K = a.shape[-1]
-    if b.shape[-2] != K:
-        raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
-    shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) + \
-        (a.shape[-2], b.shape[-1])
-    acc = torch.zeros(shape, dtype=torch.float32, device=a.device)
-    for s in range(0, K, granularity):
-        part = torch.zeros_like(acc)
-        for k in range(s, min(s + granularity, K)):
-            part = part + a[..., :, k:k + 1] * b[..., k:k + 1, :]
-        acc = acc + part
-        if mu < 23:
-            acc = round_to_mantissa(acc, mu)
-    return acc
+from repro_torch.core.mixed_matmul import slab_sums
+from repro_torch.core.numerics import check_mu
 
 
 def _blocks(a, b, block_m, block_n, block_k) -> Tuple[int, int, int]:
@@ -68,11 +50,28 @@ def _blocks(a, b, block_m, block_n, block_k) -> Tuple[int, int, int]:
 def ps_matmul_plain(a: torch.Tensor, b: torch.Tensor, *, mu: int = 7,
                     block_m: int = 128, block_n: int = 128,
                     block_k: int = 128) -> torch.Tensor:
-    """Plain PyTorch version (``kernels/ref.py::ps_matmul_ref``, with the
-    kernel's order inside a slab)."""
+    """Plain PyTorch version (``kernels/ref.py::ps_matmul_ref``, each slab
+    summed lane by lane in k order): the oracle the kernel is held to."""
     check_mu(mu)
     _, _, K = _blocks(a, b, block_m, block_n, block_k)
     return slab_sums(a, b, mu, min(block_k, K))
+
+
+def tf32_split_device(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's split of a CUDA float32 tensor into tf32 hi and lo,
+    beside cvt.rna.tf32.f32's (the exported test entry of the kernel
+    library): (n, 5) int32, the bits of hi, lo, hi_cvt, lo_cvt, and 1 where
+    the split flags x as not finite (NaN, Inf, or hi past FLT_MAX)."""
+    from repro_torch.kernels import build
+
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError("tf32_split_device takes a CUDA float32 tensor")
+    x = x.contiguous().view(-1)
+    out = torch.empty((x.numel(), 5), dtype=torch.int32, device=x.device)
+    build.check_launch(build.load("ps_matmul.cu").lamp_tf32_split(
+        x.data_ptr(), out.data_ptr(), x.numel(),
+        torch.cuda.current_stream(x.device).cuda_stream), "tf32_split")
+    return out
 
 
 def prepare_launch(a: torch.Tensor, b: torch.Tensor, *, mu: int = 7,

@@ -20,13 +20,15 @@ bfloat16 step (rtol 2e-2) in bfloat16; ps_matmul 1e-6, and 1e-5 at mu 23
   running accumulator (2^(1-mu) * sum_k |a_ik b_kj|). These seeds have
   none.
 - attention: a y_low chunk sum on a midpoint rounds apart in the two
-  packages in the same way (as tests/test_torch_decode.py found at
-  granularity 0), which moves that query row's output by more than
-  roundoff and may move its count. Such rows are found by computing y_low
-  in both packages (``ylow_apart``); at most APART_ROWS per case may occur,
-  their outputs are held to atol 1e-3 and their counts to the number of
-  keys that round apart. Every other row is held to TOL, every count
-  exact. The non-causal mu 7 case (seed 70) has one such row.
+  packages in the same way (the port sums a chunk lane by lane,
+  ``slab_sums``, as its CUDA kernels do; XLA in its dot's order, as
+  tests/test_torch_decode.py found at granularity 0), which moves that
+  query row's output by more than roundoff and may move its count. Such
+  rows are found by computing y_low in both packages (``ylow_apart``); at
+  most APART_ROWS per case may occur, their outputs are held to atol 1e-3
+  and their counts to the number of keys that round apart. Every other row
+  is held to TOL, every count exact. The non-causal mu 7 case (seed 70)
+  has one such row.
 """
 
 import json
@@ -39,7 +41,7 @@ import jax.numpy as jnp
 
 from repro.kernels import ops as JOPS
 from repro.kernels.ref import _subtile_qk
-from repro_torch.core.mixed_matmul import dot_ps
+from repro_torch.core.mixed_matmul import slab_sums
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import lamp_attention as LA
 from repro_torch.kernels import ps_matmul as PM
@@ -64,14 +66,14 @@ def _both(x, bf16=False):
 
 def ylow_apart(q, k, mu, sub, ok):
     """(B, H, T) valid keys (mask `ok`) per query row whose y_low differs
-    between the JAX oracle's chunk sums and the port's ``dot_ps`` (module
+    between the JAX oracle's chunk sums and the port's ``slab_sums`` (module
     docstring). None at mu >= 23, where y_low is not rounded."""
     if mu >= 23:
         return np.zeros(q.shape[:-1], np.int64)
     qs = q.astype(np.float32) * np.float32(q.shape[-1] ** -0.5)
     k = k.astype(np.float32)
-    yt = dot_ps(torch.from_numpy(qs), torch.from_numpy(k).transpose(-1, -2),
-                mu, granularity=sub).numpy()
+    yt = slab_sums(torch.from_numpy(qs), torch.from_numpy(k).transpose(-1, -2),
+                   mu, sub).numpy()
     yj = np.stack([np.stack([np.asarray(_subtile_qk(
         jnp.asarray(qs[b, h]), jnp.asarray(k[b, h]).T, mu, sub))
         for h in range(q.shape[1])]) for b in range(q.shape[0])])
@@ -212,7 +214,7 @@ def test_ps_matmul_plain_rounds_after_each_slab():
     rng = np.random.default_rng(4)
     a, b = torch.from_numpy(_rand(rng, (8, 24))), torch.from_numpy(_rand(rng, (24, 8)))
     one = PM.ps_matmul(a, b, mu=5, block_k=24)
-    assert torch.equal(one, round_to_mantissa(PM.slab_sums(a, b, 23, 24), 5))
+    assert torch.equal(one, round_to_mantissa(slab_sums(a, b, 23, 24), 5))
     three = PM.ps_matmul(a, b, mu=5, block_k=8)
     assert torch.equal(three, round_to_mantissa(three, 5))
     assert not torch.equal(one, three)
