@@ -7,7 +7,8 @@ without them or outside a checkout of the repository. Every phase prints
 one JSON line; any failure ends the run with a non-zero exit. Phases:
 
   device   the card's name and power limit (nvidia-smi)
-  build    nvcc builds every kernel source (one nvcc per source, in parallel)
+  build    nvcc builds every kernel source (one nvcc per source, in
+           parallel); registers and spill stores of each kernel (ptxas)
   round    the kernels' __device__ round_to_mantissa against the PyTorch
            version: random values, ties, carries, subnormals, Inf, NaN;
            bit-exact; and ps_matmul's tf32 split: bit-exact with
@@ -115,9 +116,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build_all()
     secs = time.perf_counter() - t0
-    ptxas = {src: [l.strip() for l in log.splitlines()
-                   if "registers" in l or "spill" in l]
-             for src, log in build.build_logs.items()}
+    ptxas = {src: build.ptxas_usage(src) for src in build.SIGNATURES}
     emit("build", seconds=secs, sources=list(build.SIGNATURES), ptxas=ptxas)
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -85,6 +86,9 @@ def _lib_path(source: str) -> str:
 def _compile(source: str) -> str:
     path = _lib_path(source)
     if os.path.exists(path):
+        if source not in build_logs and os.path.exists(path + ".log"):
+            with open(path + ".log") as f:
+                build_logs[source] = f.read()
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -96,11 +100,35 @@ def _compile(source: str) -> str:
         build_logs[source] = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source}:\n{build_logs[source]}")
+        with open(path + ".log", "w") as f:
+            f.write(build_logs[source])
         os.replace(tmp, path)    # atomic: a half-written library is never loaded
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return path
+
+
+def ptxas_usage(source: str) -> Dict[str, Dict[str, int]]:
+    """Registers a thread and bytes of spill stores that ptxas reported for
+    each kernel (mangled name) of `source`, from its build log (built first
+    if needed)."""
+    _compile(source)
+    usage: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in build_logs.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            usage[name]["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
 
 
 def build_all() -> None:

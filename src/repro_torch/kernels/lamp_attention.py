@@ -3,22 +3,24 @@ the TPU kernel ``repro/kernels/lamp_attention.py::lamp_flash_attention``
 (Pallas body ``_kernel``).
 
 y_low is q . k summed in chunks of ``k_subtile`` lanes, each chunk lane by
-lane in k order, the running sum rounded to PS(mu) after each chunk
-(unrounded at mu >= 23). The keys of k-block ik (``block_k`` keys) are
-selected against the running row max of s = y + log|y| over k-blocks
-0..ik -- one pass, so early blocks can only over-select against the
-two-pass rule -- and the selected logits are recomputed in FP32. Causal or
-not.
+lane in k order from a zero partial, the running sum rounded to PS(mu)
+after each chunk (unrounded at mu >= 23). The keys of k-block ik
+(``block_k`` keys) are selected against the running row max of s = y +
+log|y| over k-blocks 0..ik -- one pass, so early blocks can only
+over-select against the two-pass rule -- and the selected logits are
+replaced by y_exact, the same chunk partials summed unrounded (in the
+Pallas kernel "both values fall out of the same MXU pass"). Causal or not.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/lamp_attention.cu``: 16 query rows per thread block, each k-block
-in two phases, y_low and the running max first, then selection, recompute
-and online softmax) or raises; on a CPU tensor it runs
-``lamp_flash_attention_plain``, which sums y_low in the kernel's order
-(``core.mixed_matmul.slab_sums``), so the two select the same keys.
+(``csrc/lamp_attention.cu``: 32 query rows per thread block, y_low and
+y_exact bit-exact on the CUDA cores in 4 x 4 register tiles, the online
+softmax's P.V on the tensor cores in 3xTF32) or raises; on a CPU tensor it
+runs ``lamp_flash_attention_plain``, which sums y_low and y_exact in the
+kernel's order (``core.mixed_matmul.slab_sums``), so the two select the
+same keys and differ only in the softmax's order and the 3xTF32 P.V.
 bfloat16 inputs are widened to float32 by the wrapper before the launch
 (exact, one extra pass over q, k and v). What bounds the kernel on the
-H100: the CUDA-core work of y_low and P.V per causal (query, key) pair.
+H100: the CUDA-core work of bit-exact y_low per causal (query, key) pair.
 """
 
 from __future__ import annotations
@@ -58,11 +60,13 @@ def lamp_flash_attention_plain(q, k, v, *, mu: int = 7, tau: float = 0.05,
                                reduce: bool = True
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version (``kernels/ref.py::lamp_flash_attention_ref``),
-    vectorized over batch, heads and query rows: y_low from ``slab_sums``
-    in chunks of `k_subtile` lanes (the kernel's order), the running max as
-    a cumulative max of the per-k-block row maxima, and the softmax taken
-    whole (equal to the online one up to roundoff). Returns (out (B, H, T, D) float32, n_selected: a
-    float32 scalar, or (B, H, T) per query row with reduce=False)."""
+    vectorized over batch, heads and query rows: y_low and y_exact from
+    ``slab_sums`` in chunks of `k_subtile` lanes (the kernel's order; y_exact
+    is the chunks summed unrounded, mu 23), the running max as a cumulative
+    max of the per-k-block row maxima, and the softmax taken whole (equal
+    to the online one up to roundoff). Returns (out (B, H, T, D) float32,
+    n_selected: a float32 scalar, or (B, H, T) per query row with
+    reduce=False)."""
     _, bk = _check(q, k, v, block_q, block_k, k_subtile)
     B, H, T, D = q.shape
     S = k.shape[2]
@@ -78,12 +82,18 @@ def lamp_flash_attention_plain(q, k, v, *, mu: int = 7, tau: float = 0.05,
     run = s.view(B, H, T, S // bk, bk).amax(-1).cummax(-1).values.clamp_min(NEG)
     thr = (log_tau(tau) + run).repeat_interleave(bk, dim=-1)
     sel = ok & (s > thr)
-    y = torch.where(sel, torch.matmul(qf, kt), y_low)
+    y = torch.where(sel, slab_sums(qf, kt, 23, k_subtile), y_low)
     y = torch.where(ok, y, NEG)
     p = torch.where(ok, torch.exp(y - y.amax(-1, keepdim=True)), 0.0)
     out = torch.matmul(p, v.float()) / p.sum(-1, keepdim=True).clamp_min(1e-30)
     counts = sel.sum(-1)
     return out, (counts.sum() if reduce else counts).float()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy of it if its data does not start on 16 bytes (the
+    kernel stages rows with 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def prepare_launch(q, k, v, *, mu: int = 7, tau: float = 0.05,
@@ -112,7 +122,7 @@ def prepare_launch(q, k, v, *, mu: int = 7, tau: float = 0.05,
         raise ValueError(f"block_k={block_k} needs {smem} bytes of shared "
                          f"memory per thread block, above the card's "
                          f"{SMEM_LIMIT}")
-    q32, k32, v32 = (t.to(torch.float32).contiguous() for t in (q, k, v))
+    q32, k32, v32 = (_aligned(t.to(torch.float32).contiguous()) for t in (q, k, v))
     out = torch.empty((B, H, T, D), dtype=torch.float32, device=dev)
     cnt = torch.empty((B, H, T), dtype=torch.int32, device=dev)
     fn = lib.lamp_flash_attention

@@ -219,7 +219,7 @@ def lamp_attention_row(name, dev, timer, *, shape, seed=0, **kw) -> Dict:
                library="F.scaled_dot_product_attention(is_causal=True): exact "
                        "attention, which LAMP computes at mu 23",
                **bound(4 * (q.numel() * 2 + k.numel() + v.numel()) + 4,
-                       pairs * 4 * D + float(cnt.sum()) * 2 * D))
+                       pairs * 4 * D))
     return row
 
 

@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.ps_matmul_variants
 
-Each variant is ``kernels/csrc/ps_matmul.cu`` with a few lines replaced
+Each variant is ``kernels/csrc/ps_matmul.cu`` (with ``tf32_mma.cuh``, its
+tf32 split and MMA helpers, written in) with a few lines replaced
 (``VARIANTS``), built by nvcc with the flags of ``kernels.build`` into
 ``kernels/build/variants/``, and timed (CUDA events, L2 flushed, as in
 ``kernels_micro``) at the micro-benchmark's two ps_matmul shapes, at mu 7
@@ -18,8 +19,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import os
-import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Tuple
 
@@ -28,6 +27,7 @@ import torch
 
 from repro_torch.core.mixed_matmul import slab_sums
 from repro_torch.kernels import build
+from repro_torch.launch import kernel_variants as KV
 from repro_torch.launch import kernels_micro as KM
 
 # name -> (what it changes, [(text of ps_matmul.cu, replacement)])
@@ -60,33 +60,14 @@ SHAPES = [(1024, 768, 3072, 128, 6), (256, 256, 256, 128, 2)]
 
 
 def variant_source(name: str) -> str:
-    """ps_matmul.cu with `name`'s replacements; each text must occur in it
-    exactly once."""
-    with open(os.path.join(build.CSRC, "ps_matmul.cu")) as f:
-        src = f.read()
-    for old, new in VARIANTS[name][1]:
-        if src.count(old) != 1:
-            raise ValueError(f"variant {name}: {old!r} occurs {src.count(old)} "
-                             "times in ps_matmul.cu")
-        src = src.replace(old, new)
-    return src
+    """ps_matmul.cu, with the tensor-core helpers of ``tf32_mma.cuh``
+    written in where it includes them, and `name`'s replacements; each text
+    must occur in it exactly once."""
+    return KV.variant_source("ps_matmul.cu", name, VARIANTS[name][1])
 
 
 def _build(name: str) -> Tuple[str, List[str]]:
-    out_dir = os.path.join(build.BUILD_DIR, "variants")
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(out_dir, f"ps_matmul_{name}.cu")
-    lib = os.path.join(out_dir, f"libps_matmul_{name}.so")
-    with open(src, "w") as f:
-        f.write(variant_source(name))
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", build.CSRC,
-                           "-o", lib, src], capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
-    ptxas = [l.strip() for l in log.splitlines()
-             if "registers" in l or "spill" in l]
-    return lib, ptxas
+    return KV.build_variant("ps_matmul.cu", name, variant_source(name))
 
 
 def _launcher(fn, a, b, mu: int, block_k: int):
@@ -101,16 +82,6 @@ def _launcher(fn, a, b, mu: int, block_k: int):
     return launch, out
 
 
-def _card() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30).stdout.strip()
-    except (OSError, subprocess.SubprocessError):
-        return torch.cuda.get_device_name(0)
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the variants run only on a card")
@@ -122,7 +93,7 @@ def main() -> int:
         fn = ctypes.CDLL(lib).lamp_ps_matmul
         fn.argtypes, fn.restype = build.SIGNATURES["ps_matmul.cu"]["lamp_ps_matmul"]
         fns[name] = fn
-    print(json.dumps({"card": _card(),
+    print(json.dumps({"card": KV.card(),
                       "variants": {n: VARIANTS[n][0] for n in VARIANTS},
                       "ptxas": {n: p for n, (_, p) in built.items()}}), flush=True)
     timer = KM.Timer(dev)

@@ -10,7 +10,8 @@ the bits, the carry running into the exponent). The plain versions
 (``lamp_flash_attention_plain``, ``flash_decode_plain``) must compute that
 same y_low through ``core.mixed_matmul.slab_sums``, and select the keys
 that the rule selects on it, so that the kernels are held to them with
-exact counts. ps_matmul's plain version sums its slabs the same way.
+exact counts; lamp_flash_attention_plain's y_exact is the same chunks
+summed unrounded (``slab_sums`` at mu 23), as the kernel takes it. ps_matmul's plain version sums its slabs the same way.
 
 No JAX here: these are properties of the port alone.
 """
@@ -101,7 +102,8 @@ def test_lamp_attention_plain_sums_ylow_in_kernel_order(monkeypatch, mu, sub):
         _, cnt = LA.lamp_flash_attention_plain(
             *(torch.from_numpy(a) for a in (q, k, v)), mu=mu, tau=tau,
             causal=causal, block_q=16, block_k=bk, k_subtile=sub, reduce=False)
-        assert len(seen) == 1 and same_bits(seen[0].numpy(), want)
+        assert len(seen) == 2 and same_bits(seen[0].numpy(), want)
+        assert same_bits(seen[1].numpy(), emulate(scaled(q), k, 23, sub))
         ok = np.tril(np.ones((T, T), bool)) if causal else np.ones((T, T), bool)
         s = np.where(ok, score(want), NEG)
         run = np.maximum.accumulate(s.reshape(B, H, T, T // bk, bk).max(-1), -1)
