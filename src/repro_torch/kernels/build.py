@@ -45,7 +45,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             [_P] * 11 + [_I] * 12 + [_F, _I, _P], _I),
     },
     "flash_decode.cu": {
-        "lamp_flash_decode": ([_P] * 7 + [_I] * 6 + [_F, _F, _I, _P], _I),
+        "lamp_flash_decode": ([_P] * 7 + [_I] * 6 + [_F, _F] + [_I] * 3 + [_P],
+                              _I),
+        "lamp_flash_decode_workspace": ([_I, _I, _I], _LL),
     },
     "lamp_attention.cu": {
         "lamp_flash_attention": ([_P] * 5 + [_I] * 8 + [_F, _F, _P], _I),
@@ -57,6 +59,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "rmsnorm.cu": {
         "lamp_rmsnorm": ([_P] * 3 + [_LL, _I, _I, _F, _P], _I),
+        "lamp_rmsnorm_vector_path": ([_P] * 3 + [_I, _I], _I),
     },
 }
 

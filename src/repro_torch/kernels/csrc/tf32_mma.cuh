@@ -1,6 +1,7 @@
 // Tensor-core helpers shared by ps_matmul.cu and lamp_attention.cu: cp.async
-// staging, the tf32 split of an FP32 value into hi + lo, and the mma.sync
-// m16n8k8 tf32 product with its ldmatrix A-fragment load.
+// staging (flash_decode.cu's too), the tf32 split of an FP32 value into
+// hi + lo, and the mma.sync m16n8k8 tf32 product with its ldmatrix
+// A-fragment load.
 //
 // 3xTF32: a product a b of FP32 values is taken as a_lo b_hi + a_hi b_lo +
 // a_hi b_hi on the tensor cores, where hi = tf32(x) and lo = tf32(x - hi);
@@ -30,6 +31,12 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(ok ? 4 : 0));
+}
+
+// Copy 8 bytes (four bfloat16 values), or with ok false zero-fill them.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -11,14 +11,19 @@ smax, recomputes those logits in FP32 and attends. A row of length 0
 gives 0.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/flash_decode.cu``, two launches, one thread block per (b, h); keys
-past length[b] are never read) or raises; on a CPU tensor it runs
+(``csrc/flash_decode.cu``) or raises; on a CPU tensor it runs
 ``flash_decode_plain``, which sums y_low in the kernel's order
-(``core.mixed_matmul.slab_sums``), so the two select the same keys.
-bfloat16 inputs are widened to float32 by the wrapper before the launch
-(exact, one extra pass over the cache). What bounds the kernel on the
-H100: bytes (the valid K rows twice, V once) and the CUDA-core work of
-y_low.
+(``core.mixed_matmul.slab_sums``), so the two select the same keys. The
+kernel splits each row's keys over thread blocks of ``KEYS_PER_SPLIT``
+keys, one key a thread; blocks past the row's length exit at once, and
+keys past it are never read. Its first launch writes each valid key's
+y_low to a scratch and each split's max of s; its second (launched to
+start while the first runs, waiting only before it reads what the first
+wrote) selects, reads a K row only for a selected key, attends and merges
+the splits of a row in split order (so calls give the same bits). float32
+and bfloat16 caches are read in their own dtype and widened in the kernel,
+as the Pallas bodies widen them. What bounds the kernel on the H100:
+bytes, the valid K and V rows read once.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from repro_torch.core.mixed_matmul import slab_sums
 from repro_torch.core.numerics import check_mu
 
 NEG = -1e30
+KEYS_PER_SPLIT = 128      # csrc/flash_decode.cu's KS: keys a thread block
+CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def log_tau(tau: float) -> float:
@@ -88,11 +95,15 @@ def flash_decode_plain(q, k_cache, v_cache, length, *, mu: int = 7,
 
 
 def prepare_launch(q, k_cache, v_cache, length, *, mu: int = 7,
-                   tau: float = 0.05, k_subtile: int = 32):
+                   tau: float = 0.05, k_subtile: int = 32, lib=None):
     """Check, allocate and bind (the blocks already checked). Returns
     (launch, out, cnt): each `launch()` enqueues both passes on the current
     stream (without counting them), raises if one is refused and returns 2;
-    cnt is (B, H) int32."""
+    cnt is (B, H) int32. The caches are read where they lie, in their own
+    dtype: they must be 16-byte aligned (a contiguous view at an odd
+    storage offset is refused). `lib` is the loaded kernel library, the
+    built ``csrc/flash_decode.cu`` unless a measurement passes a variant's
+    (``launch.flash_decode_variants``)."""
     from repro_torch.kernels import build
 
     dev = q.device
@@ -101,7 +112,7 @@ def prepare_launch(q, k_cache, v_cache, length, *, mu: int = 7,
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype not in (torch.float32, torch.bfloat16):
+        if t.dtype not in CACHE_DTYPES:
             raise TypeError(f"flash_decode takes float32 or bfloat16, got "
                             f"{name} {t.dtype}")
     B, H, _, D = q.shape
@@ -110,24 +121,30 @@ def prepare_launch(q, k_cache, v_cache, length, *, mu: int = 7,
         raise ValueError(f"kernel takes D <= 128 and D % 4 == 0, got D={D}")
     if length.shape != (B,):
         raise ValueError(f"length must be ({B},), got {tuple(length.shape)}")
-    q32, k32, v32 = (t.to(torch.float32).contiguous()
-                     for t in (q, k_cache, v_cache))
+    q32 = q.to(torch.float32).contiguous()
+    kc, vc = k_cache.contiguous(), v_cache.contiguous()
+    for name, t in (("k_cache", kc), ("v_cache", vc)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     len32 = length.to(torch.int32).contiguous()
     out = torch.empty((B, H, 1, D), dtype=torch.float32, device=dev)
-    smax = torch.empty((B, H), dtype=torch.float32, device=dev)
     cnt = torch.empty((B, H), dtype=torch.int32, device=dev)
-    fn = build.load("flash_decode.cu").lamp_flash_decode
-    args = (q32.data_ptr(), k32.data_ptr(), v32.data_ptr(), len32.data_ptr(),
-            smax.data_ptr(), out.data_ptr(), cnt.data_ptr(), B * H, H, S, D,
+    lib = lib or build.load("flash_decode.cu")
+    work = torch.empty(lib.lamp_flash_decode_workspace(B * H, S, D),
+                       dtype=torch.uint8, device=dev)
+    args = (q32.data_ptr(), kc.data_ptr(), vc.data_ptr(), len32.data_ptr(),
+            work.data_ptr(), out.data_ptr(), cnt.data_ptr(), B * H, H, S, D,
             mu, k_subtile, log_tau(tau), D ** -0.5)
+    dtypes = (CACHE_DTYPES[kc.dtype], CACHE_DTYPES[vc.dtype])
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch() -> int:
         for p in (1, 2):
-            build.check_launch(fn(*args, p, stream), f"flash_decode pass {p}")
+            build.check_launch(lib.lamp_flash_decode(*args, p, *dtypes, stream),
+                               f"flash_decode pass {p}")
         return 2
 
-    launch.keepalive = (q32, k32, v32, len32, smax, out, cnt)
+    launch.keepalive = (q32, kc, vc, len32, work, out, cnt)
     return launch, out, cnt
 
 

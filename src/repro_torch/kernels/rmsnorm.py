@@ -3,10 +3,14 @@
 
 ``out = x * rsqrt(mean(x^2) + eps) * (1 + w)`` over the last axis, in x's
 dtype. On a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/rmsnorm.cu``: one thread block per row, x read and out written in
-x's own dtype, float32, bfloat16 or float16) or raises; on a CPU tensor it
-runs ``rmsnorm_plain``. What bounds the kernel on the H100: bytes (x read
-once, out written once).
+(``csrc/rmsnorm.cu``) or raises; on a CPU tensor it runs
+``rmsnorm_plain``. The kernel reads x and writes out in x's own dtype
+(float32, bfloat16 or float16). On its vector path two warps hold a row in
+registers as 16-byte vectors, sum x^2 with shuffles and one barrier and
+write the row from the registers; rows that are not whole 16-byte vectors,
+tensors not 16-byte aligned and rows past 16 KB (``VEC_MAX_BYTES``) take
+the general path, a thread block a row. What bounds the kernel on the
+H100: bytes (x read once, out written once).
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from __future__ import annotations
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+VEC_MAX_BYTES = 16384     # csrc/rmsnorm.cu's: the vector path's row budget
+ROW_WARPS = 2             # csrc/rmsnorm.cu's: warps a row on the vector path
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, *,
@@ -24,11 +30,14 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, *,
     return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
 
 
-def prepare_launch(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6):
+def prepare_launch(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
+                   lib=None):
     """Check the inputs, allocate the output and bind the kernel's
     arguments. Returns (launch, out): each `launch()` enqueues the kernel on
     the current stream (without counting it), raises if it is refused and
-    returns 1."""
+    returns 1. `lib` is the loaded kernel library, the built
+    ``csrc/rmsnorm.cu`` unless a measurement passes a variant's
+    (``launch.rmsnorm_variants``)."""
     from repro_torch.kernels import build
 
     if x.dtype not in DTYPE_CODES:
@@ -42,7 +51,7 @@ def prepare_launch(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6):
                          f"{tuple(w.shape)} on {w.device}")
     w32 = w.to(torch.float32).contiguous()
     out = torch.empty_like(x)
-    fn = build.load("rmsnorm.cu").lamp_rmsnorm
+    fn = (lib or build.load("rmsnorm.cu")).lamp_rmsnorm
     args = (x.data_ptr(), w32.data_ptr(), out.data_ptr(), x.numel() // max(d, 1),
             d, DTYPE_CODES[x.dtype], float(eps),
             torch.cuda.current_stream(x.device).cuda_stream)
