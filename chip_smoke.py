@@ -20,10 +20,11 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            rule none, relaxed g0 / g1, strict g1, relaxed_ln g1, and with
            NaN-poisoned dead blocks
   decode_kernel
-           paged_decode_attention on the card against its plain version at
-           the same shapes: ragged effective lengths (1, a block edge,
-           mid-block, a window cutting mid-block), every site, a GQA arena
-           (4 KV heads), a pad row, and NaN-poisoned dead blocks
+           paged_decode_attention (the same kernel, one query a row) on the
+           card against its plain version at the same shapes: ragged
+           effective lengths (1, a block edge, mid-block, a window cutting
+           mid-block), every site, a GQA arena (4 KV heads), a pad row, and
+           NaN-poisoned dead blocks
   micro    the kernel micro-benchmark (repro_torch.launch.kernels_micro,
            --full-width, in this process): lamp_flash_attention,
            flash_decode, the paged decode gather path and kernel, ps_matmul
@@ -49,9 +50,17 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            launches x 12 x passes)
   profile  the fused speculative run under torch.profiler: device busy
            time and idle share, the kernels that take the most device time
-  kernels  per kernel: launches in the main-path runs, its time at the most
-           common bucket (the micro kernels: at full width) against its
-           bound, its plain version and its PyTorch yardstick
+  kernels  both paged kernels at every (rows, window) bucket the engine,
+           fused spec and split spec runs called them at (decode: every
+           (rows, rule) bucket), on a copy of each bucket's first inputs:
+           calls, launches, device time (behind a sleeping kernel, and
+           without it: ms_unfronted) against bound and plain version,
+           the kernel held against the plain version; the buckets' calls x
+           passes must add up to the runs' launch counts. Then per kernel:
+           launches in the main-path runs, its time at its most common
+           bucket (the decode kernel's among the draft's; the micro
+           kernels: at full width) against its bound, its plain version
+           and its PyTorch yardstick
 
 and last the line {"ok": true, "device": {...}}. Weights are random, drawn
 from a seed.
@@ -510,31 +519,60 @@ def step_breakdown(eng):
             for k, v in sorted(eng.step_ms.items())}
 
 
-def phase_engine(params, cfg):
+class Recorder:
+    """Wraps both paged wrappers for the engine runs: counts calls per run
+    and bucket, and keeps a copy of the inputs of each bucket's first call
+    (for timing the kernels at every bucket the engine ran). Mixed buckets
+    are (rows, window), decode buckets (rows, rule)."""
+
+    def __init__(self):
+        self.calls = collections.defaultdict(collections.Counter)
+        self.captured = {}
+        self.run = None
+
+    def __enter__(self):
+        from repro_torch.kernels import paged_attention as PA
+        self.mixed, self.decode = PA.paged_mixed_attention, PA.paged_decode_attention
+
+        def mixed(q, ak, av, bt, starts, qlens, site, *, tau=None, window=None):
+            self.note(("mixed", q.shape[0], q.shape[2]),
+                      (q, ak, av, bt, starts, qlens), site, tau, window)
+            return self.mixed(q, ak, av, bt, starts, qlens, site, tau=tau,
+                              window=window)
+
+        def decode(q, ak, av, bt, lengths, site, *, tau=None, window=None):
+            self.note(("decode", q.shape[0], site.rule if site.enabled else "off"),
+                      (q, ak, av, bt, lengths), site, tau, window)
+            return self.decode(q, ak, av, bt, lengths, site, tau=tau,
+                               window=window)
+
+        PA.paged_mixed_attention, PA.paged_decode_attention = mixed, decode
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import paged_attention as PA
+        PA.paged_mixed_attention, PA.paged_decode_attention = self.mixed, self.decode
+
+    def note(self, key, tensors, site, tau, window):
+        self.calls[key][self.run] += 1
+        if key not in self.captured:
+            self.captured[key] = ([t.clone() for t in tensors], site,
+                                  None if tau is None else tau.clone(), window)
+
+    def buckets(self, kind, run):
+        return {f"{a}x{b}": c[run] for (k, a, b), c in sorted(
+            self.calls.items(), key=lambda kv: str(kv[0])) if k == kind and c[run]}
+
+
+def phase_engine(params, cfg, rec):
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import transformer as TT
 
-    # the first call of each (rows, window) bucket keeps a copy of its
-    # inputs, for timing the kernel at the engine's most common bucket
-    buckets = collections.Counter()
-    captured = {}
-    kernel = TT.PA.paged_mixed_attention
-
-    def recording(q, ak, av, bt, starts, qlens, site, *, tau=None, window=None):
-        key = (q.shape[0], q.shape[2])
-        buckets[key] += 1
-        if key not in captured:
-            captured[key] = ([t.clone() for t in (q, ak, av, bt, starts, qlens)],
-                             site, tau.clone(), window)
-        return kernel(q, ak, av, bt, starts, qlens, site, tau=tau, window=window)
-
-    TT.PA.paged_mixed_attention = recording
-    try:
+    rec.run = "engine"
+    with rec:
         PA._wrapper.launches = 0          # count the main path's launches only
         eng, outs, wall = run_engine(params, cfg)
         launches = PA._wrapper.launches
-    finally:
-        TT.PA.paged_mixed_attention = kernel
     s = eng.stats()
     site = TT._kq_site(cfg, True)
     expected = eng.mixed_steps * cfg.n_layers * PA.passes(site)
@@ -557,7 +595,7 @@ def phase_engine(params, cfg):
          prefix_hit_rate=s["cache_hit_rate"], cached_tokens=s["cached_tokens"],
          prefill_chunks=s["prefill_chunks"], preemptions=s["preemptions"],
          kernel_launches=launches, expected_launches=expected,
-         buckets={f"{b}x{w}": n for (b, w), n in sorted(buckets.items())},
+         buckets=rec.buckets("mixed", "engine"),
          step_ms=step_breakdown(eng),
          plain_wall_s=pwall, plain_ms_per_step=1e3 * pwall / peng.mixed_steps,
          first_tokens_equal_plain=first_same,
@@ -565,8 +603,7 @@ def phase_engine(params, cfg):
          note="timed with a recording wrapper that copies the inputs of "
               "each bucket's first call", ok=ok)
     require(ok, "engine run failed its checks")
-    top = buckets.most_common(1)[0][0]
-    return launches, top, captured[top], kt
+    return launches, kt
 
 
 def top2_gap(params, cfg, prompt, toks, pos):
@@ -602,29 +639,17 @@ def first_difference(got, want):
 SPEC_DRAFT_LEN = 4
 
 
-def phase_spec(params, cfg, ref_tokens):
+def phase_spec(params, cfg, ref_tokens, rec):
     """Speculative decoding on the engine's stream, fused then split."""
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import transformer as TT
     from repro_torch.serving.speculative import draft_model_config
 
-    buckets = collections.Counter()
-    captured = {}
-    kernel = PA.paged_decode_attention
-
-    def recording(q, ak, av, bt, lengths, site, *, tau=None, window=None):
-        key = q.shape[0]
-        buckets[key] += 1
-        if key not in captured:
-            captured[key] = ([t.clone() for t in (q, ak, av, bt, lengths)],
-                             site, None if tau is None else tau.clone(), window)
-        return kernel(q, ak, av, bt, lengths, site, tau=tau, window=window)
-
     prompts = engine_requests(cfg)
     runs = {}
-    PA.paged_decode_attention = recording
-    try:
+    with rec:
         for mode in ("fused", "split"):
+            rec.run = f"spec_{mode}"
             PA._wrapper.launches = 0        # count this run's launches only
             PA._decode_wrapper.launches = 0
             eng, outs, wall = run_engine(params, cfg, speculative=True,
@@ -632,8 +657,6 @@ def phase_spec(params, cfg, ref_tokens):
                                          mixed_exec=mode)
             runs[mode] = (eng, outs, wall, PA._decode_wrapper.launches,
                           PA._wrapper.launches)
-    finally:
-        PA.paged_decode_attention = kernel
     ok_all = True
     launches = {"decode": 0, "mixed": 0}
     for mode, (eng, outs, wall, dec_l, mix_l) in runs.items():
@@ -678,11 +701,11 @@ def phase_spec(params, cfg, ref_tokens):
              tokens_equal=("spec-off fused run" if mode == "fused"
                            else "fused spec run") if diff is None else False,
              first_difference=where, ok=ok)
-    emit("spec_buckets", decode_kernel_rows={str(b): n for b, n in
-                                             sorted(buckets.items())})
+    emit("spec_buckets", **{
+        f"{kind}_{run}": rec.buckets(kind, run) for kind in ("mixed", "decode")
+        for run in ("spec_fused", "spec_split")})
     require(ok_all, "speculative engine runs failed their checks")
-    top = buckets.most_common(1)[0][0]
-    return launches, top, captured[top], runs["fused"][2]
+    return launches, runs["fused"][2]
 
 
 def phase_profile(params, cfg, unprofiled_wall):
@@ -723,20 +746,14 @@ def phase_profile(params, cfg, unprofiled_wall):
               for k, t, c in rows[:12]])
 
 
-def time_device(launch, reps=50):
-    """Device time of `launch` (the kernel's passes, arguments bound once):
-    enqueued back to back, so the host's per-call overhead hides behind
-    the device work."""
-    for _ in range(3):
-        launch()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        launch()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+def time_device(launch, reps=50, front=True):
+    """Device time of `launch` (the kernel's passes, arguments bound once),
+    enqueued back to back behind a sleeping kernel, so the host's per-call
+    work stays out of the timing (``kernel_variants.back_to_back_ms``).
+    front=False leaves the sleeping kernel out: the launches then run as
+    fast as the host enqueues them."""
+    from repro_torch.launch.kernel_variants import back_to_back_ms
+    return back_to_back_ms(launch, reps, front)
 
 
 def time_call(fn, reps=20):
@@ -822,85 +839,123 @@ def decode_bound_at(args, site, nsel, window):
         nbytes, flops
 
 
-def measure(kernel, plain, launch, counter):
-    """plain, kernel, kernel, plain: one card, one call, in turns. The
-    kernel's time is its device time (arguments bound once); call_ms adds
-    the wrapper's host work (checks, allocation, ctypes) around one call.
-    Timing launches are taken off the counter."""
+def measure(kernel, plain, launch, counter, plain_reps=20):
+    """plain, kernel, kernel(, plain): one card, one call, in turns. The
+    kernel's time is its device time (arguments bound once), each reading
+    followed by one without the sleeping kernel in front ("unfronted":
+    the slower of device and host enqueueing); call_ms adds the wrapper's
+    host work (checks, allocation, ctypes) around one call. With
+    plain_reps < 20 the plain version (an oracle, not a yardstick) is
+    timed once, with fewer repetitions. Timing launches are taken off the
+    counter."""
     before = counter.launches
-    p1 = time_call(plain)
-    k1 = time_device(launch)
-    k2 = time_device(launch)
-    p2 = time_call(plain)
+    p = [time_call(plain, plain_reps)]
+    k, u = [], []
+    for _ in range(2):
+        k.append(time_device(launch))
+        u.append(time_device(launch, front=False))
+    if plain_reps >= 20:
+        p.append(time_call(plain))
     c1 = time_call(kernel)
     counter.launches = before
-    return {"kernel": [k1, k2], "plain": [p1, p2]}, c1
+    return {"kernel": k, "unfronted": u, "plain": p}, c1
 
 
-def phase_kernels(mixed, decode):
+PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+
+
+def time_bucket(key, captured, calls, headline):
+    """One bucket of the engine runs: the kernel against its plain version
+    on the bucket's first inputs (tolerances as in phases kernel and
+    decode_kernel), its device time, its bound. Returns the phase line."""
     from repro_torch.kernels import paged_attention as PA
-    rows = []
-    # the mixed-row kernel at the spec-off engine's most common bucket
-    launches, bucket, (args, site, tau, window) = mixed
-    kernel = lambda: PA.paged_mixed_attention(*args, site, tau=tau, window=window)
-    plain = lambda: PA.paged_mixed_attention_plain(*args, site, tau=tau,
+    kind, rows, w = key
+    args, site, tau, window = captured
+    slack = 1 if site.enabled and (site.rule == "strict" or
+                                   site.granularity == 0) else 0
+    if kind == "mixed":
+        kernel = lambda: PA.paged_mixed_attention(*args, site, tau=tau,
+                                                  window=window)
+        plain = lambda: PA.paged_mixed_attention_plain(*args, site, tau=tau,
+                                                       window=window)
+        counter, prepare = PA._wrapper, PA.prepare_launch
+    else:
+        kernel = lambda: PA.paged_decode_attention(*args, site, tau=tau,
                                                    window=window)
-    before = PA._wrapper.launches
+        plain = lambda: PA.paged_decode_attention_plain(*args, site, tau=tau,
+                                                        window=window)
+        counter, prepare = PA._decode_wrapper, PA.prepare_decode_launch
+    before = counter.launches
     out, nsel = kernel()
     ref, nref = plain()
     torch.cuda.synchronize()
-    PA._wrapper.launches = before
-    slack = 1 if site.rule == "strict" or site.granularity == 0 else 0
-    err, dcnt, ok = compare(out, nsel, ref, nref, args[5], slack)
-    launch, _, _ = PA.prepare_launch(*args, site, tau, window)
-    runs, c1 = measure(kernel, plain, launch, PA._wrapper)
-    bound, bound_by, nbytes, flops = bound_at(args, site, out, nsel, window)
-    rows.append({"name": "paged_mixed_attention", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-                 "replaces": "src/repro/kernels/paged_attention.py:454",
-                 "launches": launches, "max_abs_err": err,
-                 "ms": statistics.median(runs["kernel"]),
-                 "plain_ms": statistics.median(runs["plain"]),
-                 "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
-    emit("kernels", kernel="paged_mixed_attention",
-         bucket={"rows": bucket[0], "window": bucket[1]}, rule=site.rule,
-         bytes=nbytes, flops=flops, ms_runs=runs, call_ms=c1,
-         max_count_diff=dcnt, ok=ok,
+    counter.launches = before
+    if kind == "mixed":
+        err, dcnt, ok = compare(out, nsel, ref, nref, args[5], slack)
+        bound, bound_by, nbytes, flops = bound_at(args, site, out, nsel, window)
+        shape = {"rows": rows, "window": w, "qlens": args[5].tolist(),
+                 "starts": args[4].tolist()}
+    else:
+        err, dcnt, ok = compare_rows(out, nsel, ref, nref, slack)
+        bound, bound_by, nbytes, flops = decode_bound_at(args, site, nsel, window)
+        shape = {"rows": rows, "lengths": args[4].tolist()}
+    launch, _, _ = prepare(*args, site, tau, window)
+    runs, c1 = measure(kernel, plain, launch, counter,
+                       plain_reps=20 if headline else 5)
+    n_calls = sum(calls.values())
+    line = {"kernel": f"paged_{kind}_attention", "bucket": shape,
+            "rule": site.rule if site.enabled else "off",
+            "passes": PA.passes(site), "calls": dict(calls),
+            "launches": n_calls * PA.passes(site),
+            "ms": statistics.median(runs["kernel"]), "ms_runs": runs["kernel"],
+            "ms_unfronted": statistics.median(runs["unfronted"]),
+            "ms_unfronted_runs": runs["unfronted"],
+            "plain_ms": statistics.median(runs["plain"]), "call_ms": c1,
+            "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops, "max_abs_err": err, "max_count_diff": dcnt,
+            "count_slack": slack, "headline": headline, "ok": ok}
+    emit("kernels", **line)
+    require(ok, f"{kind} kernel disagrees with its plain version at bucket "
+                f"{key}")
+    return line
+
+
+def phase_kernels(rec, mixed_launches, decode_launches):
+    """Both paged kernels at every bucket the engine runs called them at;
+    the kernels line gives each at its most common bucket (the mixed
+    kernel's over the three runs, the decode kernel's among the draft's)."""
+    lines = {}
+    top = {}
+    for kind in ("mixed", "decode"):
+        keys = [k for k in rec.captured if k[0] == kind]
+        if kind == "decode":             # the draft runs rule none
+            keys_top = [k for k in keys if k[2] == "none"] or keys
+        else:
+            keys_top = keys
+        top[kind] = max(keys_top, key=lambda k: (sum(rec.calls[k].values()), k[1]))
+        for key in sorted(keys, key=str):
+            lines[key] = time_bucket(key, rec.captured[key], rec.calls[key],
+                                     key == top[kind])
+    rows = []
+    for kind, launches, replaces in (
+            ("mixed", mixed_launches, "src/repro/kernels/paged_attention.py:454"),
+            ("decode", decode_launches, "src/repro/kernels/paged_attention.py:239")):
+        line = lines[top[kind]]
+        rows.append({"name": f"paged_{kind}_attention", "route": "cuda",
+                     "source": PAGED_SOURCE, "replaces": replaces,
+                     "launches": launches, "max_abs_err": line["max_abs_err"],
+                     "ms": line["ms"], "plain_ms": line["plain_ms"],
+                     "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
+                     "library_ms": None})
+    in_buckets = {k: sum(l["launches"] for key, l in lines.items()
+                         if key[0] == k) for k in ("mixed", "decode")}
+    launches = {"mixed": mixed_launches, "decode": decode_launches}
+    emit("kernels_summary", buckets=len(lines), launches=launches,
+         launches_in_buckets=in_buckets,
          library_note="no PyTorch call computes LAMP attention, so "
                       "library_ms is null")
-    require(ok, "mixed kernel disagrees with its plain version at the "
-                "engine bucket")
-    # the decode kernel at the speculative runs' most common bucket
-    launches, rows_b, (args, site, tau, window) = decode
-    kernel = lambda: PA.paged_decode_attention(*args, site, tau=tau, window=window)
-    plain = lambda: PA.paged_decode_attention_plain(*args, site, tau=tau,
-                                                    window=window)
-    before = PA._decode_wrapper.launches
-    out, nsel = kernel()
-    ref, nref = plain()
-    torch.cuda.synchronize()
-    PA._decode_wrapper.launches = before
-    slack = 1 if site.rule == "strict" or site.granularity == 0 else 0
-    err, dcnt, ok = compare_rows(out, nsel, ref, nref, slack)
-    launch, _, _ = PA.prepare_decode_launch(*args, site, tau, window)
-    runs, c1 = measure(kernel, plain, launch, PA._decode_wrapper)
-    bound, bound_by, nbytes, flops = decode_bound_at(args, site, nsel, window)
-    rows.append({"name": "paged_decode_attention", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
-                 "replaces": "src/repro/kernels/paged_attention.py:239",
-                 "launches": launches, "max_abs_err": err,
-                 "ms": statistics.median(runs["kernel"]),
-                 "plain_ms": statistics.median(runs["plain"]),
-                 "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
-    emit("kernels", kernel="paged_decode_attention",
-         bucket={"rows": rows_b, "lengths": args[4].tolist()},
-         rule=site.rule if site.enabled else "off", passes=PA.passes(site),
-         bytes=nbytes, flops=flops, ms_runs=runs, call_ms=c1,
-         max_count_diff=dcnt, ok=ok,
-         library_note="no PyTorch call computes LAMP attention, so "
-                      "library_ms is null")
-    require(ok, "decode kernel disagrees with its plain version at the "
-                "draft bucket")
+    require(in_buckets == launches, "the buckets' calls x passes do not add "
+                                    "up to the runs' launch counts")
     return rows
 
 
@@ -916,13 +971,12 @@ def main() -> int:
     cfg = gpt2_small()
     params = TT.init_params(cfg, 0, device=DEVICE)
     phase_step(params, cfg)
-    launches, bucket, captured, ref_tokens = phase_engine(params, cfg)
-    spec_launches, dbucket, dcaptured, spec_wall = phase_spec(params, cfg,
-                                                              ref_tokens)
+    rec = Recorder()
+    launches, ref_tokens = phase_engine(params, cfg, rec)
+    spec_launches, spec_wall = phase_spec(params, cfg, ref_tokens, rec)
     phase_profile(params, cfg, spec_wall)
-    rows = phase_kernels(
-        (launches + spec_launches["mixed"], bucket, captured),
-        (spec_launches["decode"], dbucket, dcaptured))
+    rows = phase_kernels(rec, launches + spec_launches["mixed"],
+                         spec_launches["decode"])
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows + micro_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

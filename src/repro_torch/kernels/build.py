@@ -37,12 +37,12 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "paged_attention.cu": {
         "lamp_paged_mixed_attention": (
-            [_P] * 12 + [_I] * 13 + [_F, _I, _P], _I),
-        "lamp_round_to_mantissa": ([_P, _P, _LL, _I, _P], _I),
-    },
-    "paged_decode.cu": {
+            [_P] * 11 + [_I] * 14 + [_F, _I, _P], _I),
         "lamp_paged_decode_attention": (
-            [_P] * 11 + [_I] * 12 + [_F, _I, _P], _I),
+            [_P] * 10 + [_I] * 13 + [_F, _I, _P], _I),
+        "lamp_paged_attention_workspace": ([_I] * 7, _LL),
+        "lamp_paged_attention_arrivals": ([_I] * 3, _LL),
+        "lamp_round_to_mantissa": ([_P, _P, _LL, _I, _P], _I),
     },
     "flash_decode.cu": {
         "lamp_flash_decode": ([_P] * 7 + [_I] * 6 + [_F, _F] + [_I] * 3 + [_P],

@@ -1,5 +1,5 @@
 // Device helpers shared by the paged LAMP attention kernels
-// (paged_attention.cu, paged_decode.cu), so the PS(mu) rounding and the
+// (paged_attention.cu serves both), so the PS(mu) rounding and the
 // selection rules are defined once.
 //
 // Bit-exactness: round_to_mantissa is bit-exact with
@@ -23,18 +23,31 @@ constexpr unsigned FULL = 0xffffffffu;
 
 enum Rule { RULE_NONE = 0, RULE_STRICT = 1, RULE_RELAXED = 2, RULE_RELAXED_LN = 3 };
 
+// PS(mu) rounding constants for mu < 23, hoisted out of a loop of roundings.
+struct PsRound {
+  unsigned shift, half_m1, keep;   // 23 - mu; half an ulp minus 1; kept bits
+};
+
+__device__ __forceinline__ PsRound ps_round(int mu) {
+  PsRound r;
+  r.shift = 23u - (unsigned)mu;
+  r.half_m1 = (1u << (r.shift - 1u)) - 1u;
+  r.keep = ~((1u << r.shift) - 1u);
+  return r;
+}
+
+// Round to nearest, ties to even, without branches: adding half an ulp
+// minus 1, plus the kept lsb, carries into the kept bits exactly when the
+// dropped bits are above half, or at half with the lsb odd (the carry may
+// reach the exponent); Inf and NaN keep their bits.
+__device__ __forceinline__ float round_ps(float x, PsRound r) {
+  const unsigned bits = __float_as_uint(x);
+  const unsigned up = (bits + r.half_m1 + ((bits >> r.shift) & 1u)) & r.keep;
+  return __uint_as_float((bits & 0x7F800000u) == 0x7F800000u ? bits : up);
+}
+
 __device__ __forceinline__ float round_to_mantissa(float x, int mu) {
-  if (mu >= 23) return x;
-  unsigned bits = __float_as_uint(x);
-  if ((bits & 0x7F800000u) == 0x7F800000u) return x;   // Inf / NaN
-  const int shift = 23 - mu;
-  const unsigned low = (1u << shift) - 1u;
-  const unsigned rem = bits & low;
-  const unsigned half = 1u << (shift - 1);
-  const unsigned lsb = (bits >> shift) & 1u;
-  const bool up = rem > half || (rem == half && lsb);
-  bits = (bits & ~low) + (up ? (1u << shift) : 0u);   // carry may reach the exponent
-  return __uint_as_float(bits);
+  return mu >= 23 ? x : round_ps(x, ps_round(mu));
 }
 
 __device__ __forceinline__ float dot_exact(const float* q, const float* k, int hd) {

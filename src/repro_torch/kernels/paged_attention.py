@@ -9,30 +9,33 @@ positions starts[b] .. starts[b] + qlens[b] - 1; each attends causally to
 the positions 0 .. its own of row b's block table in the paged arena. A
 decode row is a width-1 window, a chunked-prefill row a width-w window.
 
-On a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/paged_attention.cu``, two launches: the look-ahead statistics pass,
-then the select / recompute / attend pass; rule "none" and LAMP off skip
-the first) or raises: there is no fallback. On a CPU tensor it runs
-``paged_mixed_attention_plain``, which gathers ``arena[block_tables]`` and
-calls ``attention_lamp`` exactly as the JAX gather branch does
-(``repro/models/transformer.py:538-555``).
-
 ``paged_decode_attention`` is the port of the TPU kernel
 ``repro/kernels/paged_attention.py::paged_decode_attention`` (Pallas bodies
 ``_dec_stats_kernel`` and ``_dec_kernel``): one query per row at effective
-length ``lengths[r]`` (valid keys [0, lengths[r])). On a CUDA tensor its
-wrapper launches ``csrc/paged_decode.cu`` (the same two passes, one thread
-block per (row, head) with every warp on keys) or raises; on a CPU tensor
-it runs ``paged_decode_attention_plain``, the JAX gather branch
-(``repro/models/layers.py:297-303``).
+length ``lengths[r]`` (valid keys [0, lengths[r])), relaxed_ln's row length
+being lengths[r] itself.
 
-What bounds both kernels on the H100: bytes -- pass 1 reads K and pass 2
-reads K and V over each row's live blocks (the traffic ``decode_kv_bytes``
-counts in the JAX package) -- plus the CUDA-core work of y_low at
-granularity 1 (hd dependent multiply / add / round steps per query-key
-pair). The kernels stage each live key in shared memory once per pass (and
-query tile), never read a dead block, and run the y_low chains of many keys
-side by side, one per lane.
+On a CUDA tensor both wrappers launch one hand-written kernel design,
+``csrc/paged_attention.cu`` (the decode entry is the mixed kernel at one
+query a row at position lengths[r] - 1), or raise: there is no fallback.
+Two launches for a rule that selects (the look-ahead statistics pass, then
+the select / recompute / attend pass), one for rule "none" and LAMP off. On
+a CPU tensor they run ``paged_mixed_attention_plain`` and
+``paged_decode_attention_plain``, which gather ``arena[block_tables]`` and
+call ``attention_lamp`` / ``decode_attention_lamp`` exactly as the JAX
+gather branches do (``repro/models/transformer.py:538-555``,
+``repro/models/layers.py:297-303``).
+
+What bounds the kernel on the H100: not bytes (a few MB a call at the
+engine's buckets) but the latency of the y_low chains at granularity 1 (hd
+dependent multiply / add / round steps per query-key pair). The kernel
+splits each row's keys over units of (row, head, query tile, split of keys;
+``TILES``), gives each thread several independent
+chains, keeps pass 1's y_low in a scratch for pass 2 (up to
+``YLOW_KEEP_MAX_BYTES``), and merges the splits in split order, so calls
+give the same bits. The merge uses arrival counters that the kernel leaves
+at zero after every call; each (device, stream) has its own, allocated
+once (``arrival_counters``).
 """
 
 from __future__ import annotations
@@ -47,6 +50,29 @@ from repro_torch.core.attention import (attention_lamp, attention_reference,
 from repro_torch.core.policy import LampSite
 
 RULE_CODES = {"none": 0, "strict": 1, "relaxed": 2, "relaxed_ln": 3}
+
+# csrc/paged_attention.cu's tiles by the bucket's window W (1; wider):
+# (NT, TR, QPT, KPT), NT threads a unit in TR rows, each QPT queries x KPT
+# keys, so a unit holds TQ = TR QPT queries and a split KS = (NT / TR) KPT
+# keys
+TILES = {"one": (128, 2, 1, 1), "wide": (128, 4, 2, 2)}
+# Pass 1 keeps y_low for pass 2 up to this many bytes of scratch (B H W
+# n_max bs float32 values); past it pass 2 stages K and recomputes y_low.
+# Every bucket of the GPT-2 small engine keeps it (8 x 128 at 320 keys:
+# 15.7 MB).
+YLOW_KEEP_MAX_BYTES = 32 << 20
+
+
+def tile_of(W: int) -> str:
+    """The tile the kernel uses for a bucket of W queries a row."""
+    return "one" if W == 1 else "wide"
+
+
+def keeps_ylow(B: int, H: int, W: int, n_max: int, bs: int,
+               site: LampSite) -> bool:
+    """Whether pass 1 keeps y_low for pass 2 (a two-pass call whose scratch
+    is at most YLOW_KEEP_MAX_BYTES); else pass 2 recomputes it."""
+    return passes(site) == 2 and 4 * B * H * W * n_max * bs <= YLOW_KEEP_MAX_BYTES
 
 
 def supports_site(site: LampSite) -> bool:
@@ -124,6 +150,9 @@ def _check_arena(q, arena_k, arena_v, block_tables, site, window) -> int:
         raise ValueError(f"paged kernel does not serve LAMP rule {site.rule!r}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    for name, t in (("arena_k", arena_k), ("arena_v", arena_v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     return Hkv
 
 
@@ -142,28 +171,56 @@ def _site_args(site: LampSite, window) -> tuple:
             int(site.enabled), site.n_ref, -1 if window is None else int(window))
 
 
+_arrivals = {}
+
+
+def arrival_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """At least `n` int32 arrival counters for the kernel on `dev` and the
+    current stream, zero between calls (the kernel resets each counter it
+    uses). Allocated once per (device, stream) and grown as needed; a
+    stream's counters are never shared with another stream, whose calls
+    could overlap."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _arrivals.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _arrivals[key] = buf
+    return buf
+
+
 def _launcher(name: str, fn, args, n_pass: int, stream, keepalive):
     """`launch()` enqueues the call's passes (pass 1 only for a selecting
     rule) on `stream` and raises if one is refused; returns n_pass."""
+    from repro_torch.kernels import build
+
     def launch() -> int:
         for p in range(3 - n_pass, 3):
-            err = fn(*args, p, stream)
-            if err != 0:
-                raise RuntimeError(f"{name} pass {p} failed to launch: CUDA "
-                                   f"error {err}")
+            build.check_launch(fn(*args, p, stream), f"{name} pass {p}")
         return n_pass
 
     launch.keepalive = keepalive   # the bound pointers must stay valid
     return launch
 
 
+def _workspace(lib, dev, B, H, W, hd, bs, n_max, keep):
+    """The call's scratch and its arrival counters."""
+    work = torch.empty(lib.lamp_paged_attention_workspace(B, H, W, hd, bs, n_max,
+                                                          int(keep)),
+                       dtype=torch.uint8, device=dev)
+    arrive = arrival_counters(dev, lib.lamp_paged_attention_arrivals(B, H, W))
+    return work, arrive
+
+
 def prepare_launch(q, arena_k, arena_v, block_tables, starts, qlens, site,
-                   tau=None, window=None):
+                   tau=None, window=None, *, lib=None):
     """Check the inputs, allocate the outputs and bind the kernel's
     arguments. Returns (launch, out, cnt): each `launch()` enqueues the
     call's passes on the current stream (without counting them) and raises
     if one is refused. The wrapper uses it once per call; a timing loop may
-    call `launch` many times."""
+    call `launch` many times. Pass 1 keeps y_low for pass 2 where
+    ``keeps_ylow`` says so. `lib` is the loaded kernel library, the built
+    ``csrc/paged_attention.cu`` unless a measurement passes a variant's
+    (``launch.paged_attention_variants``)."""
     from repro_torch.kernels import build
 
     dev = q.device
@@ -173,22 +230,22 @@ def prepare_launch(q, arena_k, arena_v, block_tables, starts, qlens, site,
     B, H, W, hd = q.shape
     if starts.shape != (B,) or qlens.shape != (B,):
         raise ValueError("starts / qlens rows must match q's B")
+    bs, n_max = arena_k.shape[1], block_tables.shape[1]
     n_pass = passes(site)
+    keep = keeps_ylow(B, H, W, n_max, bs, site)
     tau = _tau_tensor(tau, site, dev)
     out = torch.empty((B, H, W, hd), dtype=torch.float32, device=dev)
     cnt = torch.empty((B, H, W), dtype=torch.float32, device=dev)
-    stats = torch.empty((3, B, H, W) if n_pass == 2 else (3, 1),
-                        dtype=torch.float32, device=dev)
-    fn = build.load("paged_attention.cu").lamp_paged_mixed_attention
+    lib = lib or build.load("paged_attention.cu")
+    work, arrive = _workspace(lib, dev, B, H, W, hd, bs, n_max, keep)
     args = (q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
             block_tables.data_ptr(), starts.data_ptr(), qlens.data_ptr(),
-            tau.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-            stats[2].data_ptr(), out.data_ptr(), cnt.data_ptr(),
-            B, H, Hkv, W, hd, arena_k.shape[1], block_tables.shape[1],
-            *_site_args(site, window), hd ** -0.5)
+            tau.data_ptr(), work.data_ptr(), arrive.data_ptr(), out.data_ptr(),
+            cnt.data_ptr(), B, H, Hkv, W, hd, bs, n_max,
+            *_site_args(site, window), int(keep), hd ** -0.5)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    launch = _launcher("paged_mixed_attention", fn, args, n_pass, stream,
-                       (tau, stats))
+    launch = _launcher("paged_mixed_attention", lib.lamp_paged_mixed_attention,
+                       args, n_pass, stream, (tau, work, arrive))
     return launch, out, cnt
 
 
@@ -268,8 +325,8 @@ def paged_decode_attention_plain(q, arena_k, arena_v, block_tables, lengths,
 
 
 def prepare_decode_launch(q, arena_k, arena_v, block_tables, lengths, site,
-                          tau=None, window=None):
-    """`prepare_launch` for the decode kernel: check, allocate, bind.
+                          tau=None, window=None, *, lib=None):
+    """`prepare_launch` for the decode entry: check, allocate, bind.
     Returns (launch, out, cnt), cnt (R, H) per row and head."""
     from repro_torch.kernels import build
 
@@ -281,22 +338,22 @@ def prepare_decode_launch(q, arena_k, arena_v, block_tables, lengths, site,
         raise ValueError(f"decode takes one query per row, got {T}")
     if lengths.shape != (R,):
         raise ValueError("lengths rows must match q's rows")
+    bs, n_max = arena_k.shape[1], block_tables.shape[1]
     n_pass = passes(site)
+    keep = keeps_ylow(R, H, 1, n_max, bs, site)
     tau = _tau_tensor(tau, site, dev)
     out = torch.empty((R, H, 1, hd), dtype=torch.float32, device=dev)
     cnt = torch.empty((R, H), dtype=torch.float32, device=dev)
-    stats = torch.empty((3, R, H) if n_pass == 2 else (3, 1),
-                        dtype=torch.float32, device=dev)
-    fn = build.load("paged_decode.cu").lamp_paged_decode_attention
+    lib = lib or build.load("paged_attention.cu")
+    work, arrive = _workspace(lib, dev, R, H, 1, hd, bs, n_max, keep)
     args = (q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), tau.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
-            out.data_ptr(), cnt.data_ptr(),
-            R, H, Hkv, hd, arena_k.shape[1], block_tables.shape[1],
-            *_site_args(site, window), hd ** -0.5)
+            work.data_ptr(), arrive.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+            R, H, Hkv, hd, bs, n_max, *_site_args(site, window), int(keep),
+            hd ** -0.5)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    launch = _launcher("paged_decode_attention", fn, args, n_pass, stream,
-                       (tau, stats))
+    launch = _launcher("paged_decode_attention", lib.lamp_paged_decode_attention,
+                       args, n_pass, stream, (tau, work, arrive))
     return launch, out, cnt
 
 

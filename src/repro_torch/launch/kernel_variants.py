@@ -4,14 +4,17 @@ A variant is ``kernels/csrc/<source>`` with ``tf32_mma.cuh`` written in
 where it is included (so its helpers can be edited too) and a few texts
 replaced, each of which must occur exactly once. It is built by nvcc with
 the flags of ``kernels.build`` into ``kernels/build/variants/``; nothing in
-the port loads it. Used by ``ps_matmul_variants`` and
-``lamp_attention_variants``.
+the port loads it. Used by ``ps_matmul_variants``,
+``lamp_attention_variants``, ``flash_decode_variants``, ``rmsnorm_variants``
+and ``paged_attention_variants``; ``back_to_back_ms`` also by
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import os
 import subprocess
+import time
 from typing import List, Tuple
 
 from repro_torch.kernels import build
@@ -60,3 +63,32 @@ def card() -> str:
             timeout=30).stdout.strip()
     except (OSError, subprocess.SubprocessError):
         return torch.cuda.get_device_name(0)
+
+
+def back_to_back_ms(launch, reps: int = 50, front: bool = True) -> float:
+    """Device time of one `launch()` in ms, CUDA events around `reps`
+    launches enqueued back to back behind a kernel that sleeps twice as
+    long as the host takes to enqueue them: the host's per-call work stays
+    out of the timing even where it is longer than the kernels'. Inputs
+    stay warm in L2 from one launch to the next. With front=False there is
+    no sleeping kernel: the events then time the slower of the device and
+    the host's enqueueing."""
+    import torch
+    for _ in range(3):
+        launch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        launch()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    if front:
+        torch.cuda._sleep(int(2 * host_s * 2e9))  # cycles at up to 2 GHz
+    a.record()
+    for _ in range(reps):
+        launch()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps

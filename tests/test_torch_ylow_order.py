@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.core.mixed_matmul import slab_sums
+from repro_torch.core.numerics import round_to_mantissa
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import lamp_attention as LA
 from repro_torch.kernels import ps_matmul as PM
@@ -29,7 +30,8 @@ NEG = np.float32(-1e30)
 
 
 def round_bits(x: np.ndarray, mu: int) -> np.ndarray:
-    """lamp_device.cuh::round_to_mantissa on float32 bits."""
+    """round to nearest, ties to even, on float32 bits: the rule of
+    lamp_device.cuh::round_to_mantissa, spelled by comparisons."""
     if mu >= 23:
         return x
     bits = x.astype(np.float32).view(np.uint32)
@@ -149,3 +151,35 @@ def test_slab_sums_is_ps_matmul_plain_at_every_slab_width(mu):
         got = slab_sums(ta, tb, mu, w)
         assert torch.equal(got, PM.ps_matmul_plain(ta, tb, mu=mu, block_k=w))
         assert same_bits(got.numpy(), emulate(a, np.ascontiguousarray(b.T), mu, w))
+
+
+def round_bits_branch_free(x: np.ndarray, mu: int) -> np.ndarray:
+    """lamp_device.cuh::round_ps as the kernels spell it: add half an ulp
+    minus 1 plus the kept lsb, clear the dropped bits; Inf and NaN kept."""
+    bits = x.astype(np.float32).view(np.uint32)
+    shift = np.uint32(23 - mu)
+    half_m1 = np.uint32((1 << (23 - mu - 1)) - 1)
+    keep = np.uint32(~((1 << (23 - mu)) - 1) & 0xFFFFFFFF)
+    up = (bits + half_m1 + ((bits >> shift) & np.uint32(1))) & keep
+    special = (bits & np.uint32(0x7F800000)) == np.uint32(0x7F800000)
+    return np.where(special, bits, up).astype(np.uint32).view(np.float32)
+
+
+def test_branch_free_rounding_is_round_to_nearest_even():
+    """The kernels' branch-free rounding gives the bits of the comparison
+    form and of ``core.numerics.round_to_mantissa`` at every mu below 23:
+    random bit patterns, ties, carries into the exponent, subnormals, Inf
+    and NaN with payloads."""
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 1 << 32, size=1 << 16, dtype=np.uint64).astype(np.uint32)
+    special = np.asarray([0x3F800000 + (1 << 15), 0x3F800000 + (3 << 15),
+                          0x3FFFFFFF, 0x7F7FFFFF, 0xFF7FFFFF, 0x00000001,
+                          0x007FFFFF, 0x807FFFFF, 0x80000000, 0x7F800000,
+                          0xFF800000, 0x7FC00000, 0x7F800001, 0x7FFFFFFF,
+                          0xFFFFFFFF], np.uint32)
+    x = np.concatenate([bits, special]).view(np.float32)
+    for mu in range(1, 23):
+        got = round_bits_branch_free(x, mu).view(np.uint32)
+        assert np.array_equal(got, round_bits(x, mu).view(np.uint32)), mu
+        want = round_to_mantissa(torch.from_numpy(x.copy()), mu).numpy()
+        assert np.array_equal(got, want.view(np.uint32)), mu
