@@ -9,6 +9,15 @@ the plain version the paged CUDA kernel is held against.
 
 Shapes: q (B, H, Tq, D), k and v (B, H, Tk, D); GQA heads are repeated by
 the caller.
+
+``order`` says how the FP32 sums are taken. "dot_ps" (the default, held
+against the JAX package): y_low by ``dot_ps``, the FP32 logits by one
+matmul. "kernel": both in the order of the paged CUDA kernel
+(``kernels/csrc/paged_attention.cu``), so that its plain versions give its
+counts exactly: the FP32 logits d ascending with every product and sum
+rounded (``slab_sums`` at mu 23 over one slab), y_low their PS(mu) rounding
+at granularity 0 (or g >= D, or mu >= 23), else ``slab_sums`` in chunks of
+g lanes (``dot_ps`` itself at g 1, where the two are bit-identical).
 """
 
 from __future__ import annotations
@@ -18,8 +27,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import lamp as L
-from .mixed_matmul import dot_ps
+from .mixed_matmul import dot_ps, slab_sums
+from .numerics import round_to_mantissa
 from .policy import LampSite
+
+ORDERS = ("dot_ps", "kernel")
 
 
 class AttnAux(NamedTuple):
@@ -66,6 +78,25 @@ def _select(y, site: LampSite, where, row_lengths=None, tau=None):
     raise ValueError(f"unsupported LAMP rule {site.rule!r}")
 
 
+def _kernel_order(qs, kt, site: LampSite, exact_needed: bool):
+    """(y_low, y_exact) in the paged kernel's order (module docstring);
+    y_exact is y_low itself where neither the rule (rule "none" selects
+    nothing) nor y_low needs it."""
+    D = qs.shape[-1]
+    mu, g = site.mu, site.granularity
+    if mu >= 23 or g <= 0 or g >= D:
+        y_exact = slab_sums(qs, kt, 23, D)
+        return (y_exact if mu >= 23 else round_to_mantissa(y_exact, mu)), y_exact
+    y_low = (dot_ps(qs, kt, mu, granularity=1) if g == 1
+             else slab_sums(qs, kt, mu, g))
+    return y_low, (slab_sums(qs, kt, 23, D) if exact_needed else y_low)
+
+
+def _check_order(order: str) -> None:
+    if order not in ORDERS:
+        raise ValueError(f"order must be one of {ORDERS}, got {order!r}")
+
+
 def attention_reference(q, k, v, *, causal: bool = True,
                         scale: Optional[float] = None,
                         window: Optional[int] = None, offset=0) -> torch.Tensor:
@@ -80,14 +111,16 @@ def attention_reference(q, k, v, *, causal: bool = True,
 
 def attention_lamp(q, k, v, site: LampSite, *, causal: bool = True,
                    scale: Optional[float] = None, window: Optional[int] = None,
-                   offset=0, reduce: bool = True,
-                   tau=None) -> Tuple[torch.Tensor, AttnAux]:
+                   offset=0, reduce: bool = True, tau=None,
+                   order: str = "dot_ps") -> Tuple[torch.Tensor, AttnAux]:
     """Materialized-softmax LAMP attention.
 
     `offset` may be a (B,) tensor: row b's queries sit at absolute positions
     offset[b] .. offset[b] + Tq - 1 against keys at 0 .. Tk - 1. `tau`
     (a float or 0-d tensor) overrides `site.tau`. With `reduce=False` the
-    counts are (B, Tq), summed over heads and keys."""
+    counts are (B, Tq), summed over heads and keys. `order`: see the module
+    docstring."""
+    _check_order(order)
     q, k, v = (t.to(torch.float32) for t in (q, k, v))
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
@@ -97,8 +130,13 @@ def attention_lamp(q, k, v, site: LampSite, *, causal: bool = True,
     wb = None if where is None else torch.broadcast_to(where, (B, H, Tq, Tk))
 
     qs = q * scale
-    y_low = dot_ps(qs, k.transpose(-1, -2), site.mu,
-                   granularity=site.granularity)
+    if order == "kernel":
+        y_low, y_exact = _kernel_order(qs, k.transpose(-1, -2), site,
+                                       site.rule != "none")
+    else:
+        y_low = dot_ps(qs, k.transpose(-1, -2), site.mu,
+                       granularity=site.granularity)
+        y_exact = torch.einsum("bhqd,bhkd->bhqk", qs, k)
     if causal:
         n = _query_positions(Tq, offset, dev)[..., 0] + 1     # (Tq,) / (B,1,Tq)
         row_lengths = torch.clamp(n, 0, window if window is not None else Tk)
@@ -106,8 +144,6 @@ def attention_lamp(q, k, v, site: LampSite, *, causal: bool = True,
     else:
         row_lengths = torch.full((B, H, Tq), Tk, device=dev)
     mask = _select(y_low, site, wb, row_lengths, tau=tau)
-
-    y_exact = torch.einsum("bhqd,bhkd->bhqk", qs, k)
     y = torch.where(mask, y_exact, y_low)
     out = torch.einsum("bhqk,bhkd->bhqd", L.masked_softmax(y, wb), v)
 
@@ -128,13 +164,16 @@ def attention_lamp(q, k, v, site: LampSite, *, causal: bool = True,
 def decode_attention_lamp(q, k_cache, v_cache, length, site: LampSite, *,
                           scale: Optional[float] = None,
                           window: Optional[int] = None, reduce: bool = True,
-                          tau=None) -> Tuple[torch.Tensor, AttnAux]:
+                          tau=None, order: str = "dot_ps"
+                          ) -> Tuple[torch.Tensor, AttnAux]:
     """Single-token decode (port of ``repro/core/attention.py:386``):
     q (B, H, 1, D) against a cache (B, H, S, D) of which the first
     `length[b]` positions are valid (the last `window` of them with a
     sliding window). The relaxed_ln row length is `length` itself, not
     capped by the window, as in both JAX paths. With `reduce=False` the
-    counts are (B,), summed over heads. `tau` overrides `site.tau`."""
+    counts are (B,), summed over heads. `tau` overrides `site.tau`.
+    `order`: see the module docstring."""
+    _check_order(order)
     q = q.to(torch.float32)
     k_cache, v_cache = k_cache.to(torch.float32), v_cache.to(torch.float32)
     B, H, Tq, D = q.shape
@@ -150,12 +189,16 @@ def decode_attention_lamp(q, k_cache, v_cache, length, site: LampSite, *,
     kt = k_cache.transpose(-1, -2)
     qs = q * scale
     if site.enabled:
-        y_low = dot_ps(qs, kt, site.mu, granularity=site.granularity)
+        if order == "kernel":
+            y_low, y_exact = _kernel_order(qs, kt, site, site.rule != "none")
+        else:
+            y_low = dot_ps(qs, kt, site.mu, granularity=site.granularity)
+            y_exact = torch.matmul(qs, kt)
         mask = _select(y_low, site, ok,
                        row_lengths=torch.broadcast_to(length[:, None, None],
                                                       (B, H, Tq)),
                        tau=tau)
-        y = torch.where(mask, torch.matmul(qs, kt), y_low)
+        y = torch.where(mask, y_exact, y_low)
     else:
         y = torch.matmul(qs, kt)
         mask = torch.zeros(y.shape, dtype=torch.bool, device=y.device)

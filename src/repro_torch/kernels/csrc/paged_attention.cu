@@ -62,8 +62,10 @@
 // P.V's few products gain nothing from the tensor cores at these widths.
 //
 // Bit-exactness: y_low follows lamp_dev::dot_low_chunked (the chunk order of
-// dot_ps), the FP32 product lamp_dev::dot_exact's fmaf order, and the
-// selection rules lamp_dev::lamp_selects.
+// dot_ps), the FP32 product lamp_dev::dot_exact's order (d ascending, every
+// product and sum rounded to FP32: no fmaf, so the plain version spells it
+// as core.mixed_matmul.slab_sums(q, k, 23, hd)), and the selection rules
+// lamp_dev::lamp_selects.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -231,7 +233,7 @@ __device__ __forceinline__ void load_q(float* sQ, const Params& p, const Geo& g,
 
 // The thread's logits from staged q and K: y_low (dot_low_chunked's chunk
 // order) and, where y_low is the FP32 product rounded (or LAMP is off), the
-// FP32 product ye itself (dot_exact's fmaf order) with y = its rounding. At
+// FP32 product ye itself (dot_exact's order) with y = its rounding. At
 // granularity 1 each step is one multiply, one add and one rounding, with
 // the rounding's constants hoisted: no branch in the loop.
 template <class T>
@@ -261,10 +263,10 @@ __device__ __forceinline__ void tile_logits(const Params& p, const float* sQ,
 #pragma unroll
         for (int j = 0; j < T::KPT; ++j) {
           float x = ye[i][j];
-          x = fmaf(a[i].x, b[j].x, x);
-          x = fmaf(a[i].y, b[j].y, x);
-          x = fmaf(a[i].z, b[j].z, x);
-          ye[i][j] = fmaf(a[i].w, b[j].w, x);
+          x = __fadd_rn(x, __fmul_rn(a[i].x, b[j].x));
+          x = __fadd_rn(x, __fmul_rn(a[i].y, b[j].y));
+          x = __fadd_rn(x, __fmul_rn(a[i].z, b[j].z));
+          ye[i][j] = __fadd_rn(x, __fmul_rn(a[i].w, b[j].w));
         }
     }
 #pragma unroll
@@ -334,10 +336,10 @@ __device__ __forceinline__ float dot_exact_row(const float* q, const float* k, i
   float acc = 0.f;
   for (int d = 0; d < hd; d += 4) {
     const float4 k4 = __ldg(reinterpret_cast<const float4*>(k + d));
-    acc = fmaf(q[d], k4.x, acc);
-    acc = fmaf(q[d + 1], k4.y, acc);
-    acc = fmaf(q[d + 2], k4.z, acc);
-    acc = fmaf(q[d + 3], k4.w, acc);
+    acc = __fadd_rn(acc, __fmul_rn(q[d], k4.x));
+    acc = __fadd_rn(acc, __fmul_rn(q[d + 1], k4.y));
+    acc = __fadd_rn(acc, __fmul_rn(q[d + 2], k4.z));
+    acc = __fadd_rn(acc, __fmul_rn(q[d + 3], k4.w));
   }
   return acc;
 }

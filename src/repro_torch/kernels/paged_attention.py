@@ -22,9 +22,12 @@ Two launches for a rule that selects (the look-ahead statistics pass, then
 the select / recompute / attend pass), one for rule "none" and LAMP off. On
 a CPU tensor they run ``paged_mixed_attention_plain`` and
 ``paged_decode_attention_plain``, which gather ``arena[block_tables]`` and
-call ``attention_lamp`` / ``decode_attention_lamp`` exactly as the JAX
-gather branches do (``repro/models/transformer.py:538-555``,
-``repro/models/layers.py:297-303``).
+call ``attention_lamp`` / ``decode_attention_lamp`` as the JAX gather
+branches do (``repro/models/transformer.py:538-555``,
+``repro/models/layers.py:297-303``), with the FP32 sums taken in the
+kernel's order (``order="kernel"``: y_low and the recomputed logits summed
+d ascending as the kernel sums them), so that on a card the kernel's
+counts equal its plain version's, whatever backend runs the latter.
 
 What bounds the kernel on the H100: not bytes (a few MB a call at the
 engine's buckets) but the latency of the y_low chains at granularity 1 (hd
@@ -110,7 +113,8 @@ def paged_mixed_attention_plain(q, arena_k, arena_v, block_tables, starts,
     vh = _repeat_kv(vs.permute(0, 2, 1, 3), H // Hkv)
     if site.enabled:
         out, aux = attention_lamp(q, kh, vh, site, causal=True, window=window,
-                                  offset=starts, reduce=False, tau=tau)
+                                  offset=starts, reduce=False, tau=tau,
+                                  order="kernel")
         return out, aux.n_selected
     out = attention_reference(q, kh, vh, causal=True, window=window,
                               offset=starts)
@@ -320,7 +324,7 @@ def paged_decode_attention_plain(q, arena_k, arena_v, block_tables, lengths,
     kh = _repeat_kv(ks.permute(0, 2, 1, 3), H // Hkv)
     vh = _repeat_kv(vs.permute(0, 2, 1, 3), H // Hkv)
     out, aux = decode_attention_lamp(q, kh, vh, lengths, site, window=window,
-                                     reduce=False, tau=tau)
+                                     reduce=False, tau=tau, order="kernel")
     return out, aux.n_selected
 
 

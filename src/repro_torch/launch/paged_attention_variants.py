@@ -5,7 +5,8 @@
 Each variant is ``kernels/csrc/paged_attention.cu`` (with ``tf32_mma.cuh``
 written in) with a few lines replaced (``VARIANTS``: the keys a split, the
 queries a tile, no programmatic dependent launch, y_low recomputed in pass
-2 instead of kept), built by nvcc with the flags of ``kernels.build`` into
+2 instead of kept, the FP32 arm by fmaf chains as before the kernel took
+the plain version's summation order), built by nvcc with the flags of ``kernels.build`` into
 ``kernels/build/variants/`` (``launch.kernel_variants``) and launched
 through the port's own ``prepare_launch`` / ``prepare_decode_launch`` with
 the variant's library. Five synthetic buckets mirror the GPT-2 small
@@ -13,7 +14,9 @@ engine's (``BUCKETS``: 12 heads, hd 64, block 16, 20 blocks a row, the
 engine's site): 8 decode rows in a width-1 bucket, 8 verify rows of width 5
 in a width-8 bucket and the 2-row width-8 bucket at the lengths of its log,
 the 8 x 128 bucket's prefill windows, and the draft's 8-row decode bucket
-(rule none). Each
+(rule none); then the 8 x 1 and 8 x 8 buckets again at the `dense`
+family's deployment site (relaxed rule, granularity 0: ``SITE_BUCKETS``),
+where every logit comes from the FP32 arm. Each
 variant is held against the plain version (rtol 2e-5 / atol 2e-6 a query,
 counts within ``COUNT_SLACK``) and timed twice, the second time in the
 reverse order (``kernel_variants.back_to_back_ms``: warm L2, host work out
@@ -21,11 +24,13 @@ of the timing); the shipped kernel's passes are also timed apart by
 torch.profiler (``pass_us``). One JSON line per bucket, after one line with
 the card and the registers and spills ptxas gave each variant. Needs a
 CUDA card and nvcc; the variants are measurements only, nothing in the
-port loads them.
+port loads them. ``--variants shipped,fmaf_exact`` builds and times only
+those.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import re
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.policy import LampPolicy
 from repro_torch.kernels import build
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.launch import kernel_variants as KV
@@ -62,6 +68,25 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
                   "again", [
                       ("p.keep = p.keep && p.lamp && p.rule != RULE_NONE;",
                        "p.keep = false;")]),
+    "fmaf_exact": ("the FP32 arm (tile_logits' exact branch, dot_exact_row) "
+                   "by fmaf chains: the order before the plain versions "
+                   "took the kernel's", [
+                       ("""          x = __fadd_rn(x, __fmul_rn(a[i].x, b[j].x));
+          x = __fadd_rn(x, __fmul_rn(a[i].y, b[j].y));
+          x = __fadd_rn(x, __fmul_rn(a[i].z, b[j].z));
+          ye[i][j] = __fadd_rn(x, __fmul_rn(a[i].w, b[j].w));""",
+                        """          x = fmaf(a[i].x, b[j].x, x);
+          x = fmaf(a[i].y, b[j].y, x);
+          x = fmaf(a[i].z, b[j].z, x);
+          ye[i][j] = fmaf(a[i].w, b[j].w, x);"""),
+                       ("""    acc = __fadd_rn(acc, __fmul_rn(q[d], k4.x));
+    acc = __fadd_rn(acc, __fmul_rn(q[d + 1], k4.y));
+    acc = __fadd_rn(acc, __fmul_rn(q[d + 2], k4.z));
+    acc = __fadd_rn(acc, __fmul_rn(q[d + 3], k4.w));""",
+                        """    acc = fmaf(q[d], k4.x, acc);
+    acc = fmaf(q[d + 1], k4.y, acc);
+    acc = fmaf(q[d + 2], k4.z, acc);
+    acc = fmaf(q[d + 3], k4.w, acc);""")]),
 }
 
 H, HD, BS, N_MAX = 12, 64, 16, 20
@@ -75,6 +100,8 @@ BUCKETS = {
                     [92, 32, 4, 1, 1, 1, 1, 1], 128),
     "draft_8": ("decode", [261, 44, 183, 99, 34, 221, 1, 1], None, 1),
 }
+# buckets timed again at the dense family's deployment site (relaxed, g 0)
+SITE_BUCKETS = ("mixed_8x1", "mixed_8x8")
 TOL = dict(rtol=2e-5, atol=2e-6)
 # the strict rule thresholds on a normalizer summed in another order by the
 # kernel than by the plain version: one selection a query may differ
@@ -161,22 +188,31 @@ def pass_us(launch, reps: int = 20) -> Dict[str, float]:
     return {n: sum(t) / len(t) for n, t in times.items()}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated variants to build and time")
+    names = ap.parse_args(argv).variants.split(",")
+    unknown = sorted(set(names) - set(VARIANTS))
+    if unknown:
+        ap.error(f"unknown variants {unknown}; have {sorted(VARIANTS)}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the variants run only on a card")
     dev = torch.device("cuda")
-    with ThreadPoolExecutor(max_workers=len(VARIANTS)) as ex:
-        built = dict(zip(VARIANTS, ex.map(_build, VARIANTS)))
+    with ThreadPoolExecutor(max_workers=len(names)) as ex:
+        built = dict(zip(names, ex.map(_build, names)))
     libs = {name: _lib(path) for name, (path, _) in built.items()}
     print(json.dumps({"card": KV.card(),
-                      "variants": {n: VARIANTS[n][0] for n in VARIANTS},
+                      "variants": {n: VARIANTS[n][0] for n in names},
                       "ptxas": {n: p for n, (_, p) in built.items()}}), flush=True)
     cfg = get_config("gpt2-small")
     sites = {"mixed": TT._kq_site(cfg, True),
              "decode": TT._kq_site(draft_model_config(cfg), True)}
-    for seed, (bucket, (kind, starts, qlens, W)) in enumerate(BUCKETS.items()):
+    runs = [(bucket, spec, sites[spec[0]]) for bucket, spec in BUCKETS.items()]
+    runs += [(f"{bucket}@relaxed-g0", BUCKETS[bucket],
+              LampPolicy.deployment().kq) for bucket in SITE_BUCKETS]
+    for seed, (bucket, (kind, starts, qlens, W), site) in enumerate(runs):
         args = bucket_inputs(kind, starts, qlens, W, seed, dev)
-        site = sites[kind]
         plain = (PA.paged_mixed_attention_plain if kind == "mixed"
                  else PA.paged_decode_attention_plain)
         prepare = PA.prepare_launch if kind == "mixed" else PA.prepare_decode_launch

@@ -1,26 +1,42 @@
-"""Serve a batch of synthetic requests with the port's LAMP engine.
+"""Serve a synthetic Poisson request stream with the port's LAMP engine (the
+port of ``repro/launch/serve.py``'s stream and observability flags).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2 --reduced \
-        --num-requests 8 --device cpu [--speculative [--draft-len 4]]
+        --qps 8 --num-requests 8 --device cpu [--speculative] \
+        [--kernel gather] [--trace-out t.json] [--metrics-out m.json]
 
-Weights are random, drawn from `--seed`. Prompts of 8-48 tokens (a third of
-them opening with one shared 16-token prefix, so prefix caching has work)
-all arrive at once; every request generates 16 tokens greedily. Prints one
-line per finished request and a summary: throughput, steps, prefix-cache
-hit rate and the LAMP recompute rate; with `--speculative` also rounds,
-acceptance, tokens per round and the verify pass's recompute rate. Runs on
-CUDA unless `--device cpu`.
+Weights are random, drawn from `--seed`. Requests arrive with exponential
+inter-arrival times at `--qps`, with prompt and output lengths drawn per
+request (`--shared-prefix N` opens every prompt with the same N tokens);
+the engine admits them into the paged KV pool, continuously batches them
+and reports throughput, latency percentiles, KV-block utilization, the
+prefix cache, the per-request and aggregate LAMP recompute rate, compile
+events and the wall time of each step phase; with `--speculative` also
+rounds, acceptance, tokens per round and the verify pass's recompute rate.
+
+Observability: `--metrics-every S` prints a one-line registry snapshot
+every S seconds of stream time; `--trace-out f.json` records step-phase
+spans and writes a Chrome trace (Perfetto / chrome://tracing);
+`--metrics-out f.json` dumps the final metrics registry; `--torch-profile
+DIR` wraps the run in torch.profiler and writes its Chrome trace there.
+All loop timing runs off the engine's one clock (`engine.obs.now`), so
+`serve_stream` is deterministic under a fake clock. `--kernel gather` runs
+the paged attention's plain versions instead of the kernels. Runs on CUDA
+unless `--device cpu`.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
+from typing import Callable, List, Optional
 
 import numpy as np
 
 from repro_torch.configs import get_config, list_archs, reduced as reduce_cfg
 from repro_torch.models import transformer
+from repro_torch.obs import ObsConfig
 from repro_torch.serving import EngineConfig, LampEngine, SamplingParams
 from repro_torch.serving.engine import TEXT_FAMILIES
 
@@ -29,13 +45,111 @@ def servable_archs():
     return [a for a in list_archs() if get_config(a).family in TEXT_FAMILIES]
 
 
+def build_stream(rng: np.random.Generator, args, vocab: int):
+    """Synthetic Poisson stream: (arrival_s, prompt, sampling) per request.
+    With --shared-prefix N, every prompt opens with the same N tokens (a
+    shared system prompt), the traffic shape prefix caching exists for."""
+    arrivals = np.cumsum(rng.exponential(1.0 / args.qps, args.num_requests))
+    shared = rng.integers(0, vocab, size=args.shared_prefix).tolist() \
+        if args.shared_prefix else []
+    reqs = []
+    for i in range(args.num_requests):
+        plen = int(rng.integers(args.min_prompt, args.max_prompt + 1))
+        new = int(rng.integers(args.min_new, args.max_new + 1))
+        prompt = shared + rng.integers(0, vocab, size=plen).tolist()
+        sampling = SamplingParams(max_new_tokens=new,
+                                  temperature=args.temperature, seed=i,
+                                  top_k=args.top_k)
+        reqs.append((float(arrivals[i]), prompt, sampling))
+    return reqs
+
+
+def metrics_line(engine: LampEngine, elapsed: float) -> str:
+    """One-line live snapshot for periodic progress logging (the JAX line,
+    whose policy mode and audited flip rate read "off" and "-" here)."""
+    s = engine.stats()
+    mode = s["policy"]["mode"] if s["policy"]["enabled"] else "off"
+    audit = s["audit"]
+    flips = (f"{audit['flip_rate']:.3f}" if audit["enabled"] else "-")
+    return (f"[serve] t={elapsed:7.2f}s live={s['live_requests']:>3d} "
+            f"done={s['num_finished']:>3d} steps={s['steps']} "
+            f"tok/s={s['tokens_per_s']:7.1f} "
+            f"kv_util={s['kv_util_peak']:.0%} "
+            f"lamp_rate={s['lamp_recompute_rate']:.4f} "
+            f"mode={mode} audit_flips={flips} "
+            f"compiles={s['compiles']}")
+
+
+def serve_stream(engine: LampEngine, stream, *,
+                 metrics_every: float = 0.0,
+                 sleep: Optional[Callable[[float], None]] = None,
+                 log: Callable[[str], None] = print,
+                 per_request: bool = True,
+                 outputs: Optional[List] = None) -> List:
+    """Drive the engine over a pre-built (arrival_s, prompt, sampling)
+    stream. Every timestamp -- arrivals, idle waits, the snapshot cadence --
+    comes from the engine's own clock (`engine.obs.now`), so a fake clock
+    plus a clock-advancing `sleep` makes the whole loop deterministic. Pass
+    `outputs` to share the result list with the caller: requests finished
+    before a mid-stream exception stay visible for reporting."""
+    clock = engine.obs.now
+    if sleep is None:
+        sleep = time.sleep
+    t0 = clock()
+    next_metrics = metrics_every
+    i = 0
+    if outputs is None:
+        outputs = []
+    while i < len(stream) or engine.has_unfinished():
+        now = clock() - t0
+        while i < len(stream) and stream[i][0] <= now:
+            arr, prompt, sampling = stream[i]
+            engine.add_request(prompt, sampling, arrival_time=t0 + arr)
+            i += 1
+        done = engine.step()
+        outputs.extend(done)
+        if per_request:
+            for o in done:
+                log(f"[serve]   req {o.req_id:>3d} done: "
+                    f"prompt={len(o.prompt)} new={len(o.tokens)} "
+                    f"latency={o.latency * 1e3:7.1f}ms "
+                    f"ttft={o.ttft * 1e3:7.1f}ms "
+                    f"preempt={o.num_preemptions} "
+                    f"cached={o.num_cached_tokens} "
+                    f"lamp_rate={o.lamp_recompute_rate:.4f}")
+        if metrics_every > 0 and clock() - t0 >= next_metrics:
+            log(metrics_line(engine, clock() - t0))
+            next_metrics += metrics_every
+        if not engine.has_unfinished() and i < len(stream):
+            sleep(max(0.0, stream[i][0] - (clock() - t0)))
+    return outputs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="gpt2", choices=servable_archs())
     ap.add_argument("--reduced", action="store_true",
                     help="shrink the config to CPU-smoke scale")
+    ap.add_argument("--qps", type=float, default=8.0,
+                    help="Poisson arrival rate (requests/s)")
     ap.add_argument("--num-requests", type=int, default=8)
+    ap.add_argument("--min-prompt", type=int, default=8)
+    ap.add_argument("--max-prompt", type=int, default=48)
+    ap.add_argument("--min-new", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="sample from the top-k logits only (0 = "
+                         "unfiltered); also the filter the speculative "
+                         "accept rule scores against")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend a common prefix of this many tokens to "
+                         "every prompt (prefix-cache traffic)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--kernel", choices=transformer.KERNELS, default="cuda",
+                    help="paged-attention path: 'cuda' runs the kernels (on "
+                         "a card; their plain versions on the CPU), "
+                         "'gather' the plain versions on any device")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-lamp", action="store_true")
     ap.add_argument("--speculative", action=argparse.BooleanOptionalAction,
@@ -47,43 +161,100 @@ def main(argv=None) -> int:
                          "non-speculative decoding)")
     ap.add_argument("--draft-len", type=int, default=4,
                     help="speculative draft tokens per sequence per round")
+    ap.add_argument("--metrics-every", type=float, default=0.0,
+                    help="print a one-line metrics snapshot every S seconds "
+                         "of stream time (0 = off)")
+    ap.add_argument("--trace-out", default="",
+                    help="record step-phase spans and write a Chrome trace "
+                         "JSON here (open in Perfetto / chrome://tracing)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the final metrics-registry snapshot (JSON) "
+                         "here")
+    ap.add_argument("--torch-profile", default="",
+                    help="wrap the run in torch.profiler and write its "
+                         "Chrome trace into this directory")
     args = ap.parse_args(argv)
     if args.num_requests < 1:
         ap.error("--num-requests must be >= 1")
+    if args.min_prompt > args.max_prompt or args.min_new > args.max_new:
+        ap.error("--min-prompt/--min-new must not exceed --max-prompt/--max-new")
     device = transformer.resolve_device(args.device)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
+    longest = args.shared_prefix + args.max_prompt
+    max_len = min(cfg.max_seq, longest + args.max_new + 8)
+    if longest + args.max_new > max_len:
+        ap.error(f"shared prefix + max prompt + max new "
+                 f"({longest + args.max_new}) exceeds the model's "
+                 f"max_seq {cfg.max_seq}")
     params = transformer.init_params(cfg, args.seed, device=device)
+    obs = ObsConfig(trace=bool(args.trace_out), trace_path=args.trace_out,
+                    torch_profile_dir=args.torch_profile)
     engine = LampEngine(cfg, params, EngineConfig(
-        max_model_len=min(cfg.max_seq, 256), max_prefill_tokens=64,
-        use_lamp=not args.no_lamp, speculative=args.speculative,
-        draft_len=args.draft_len, device=str(device)))
-    rng = np.random.default_rng(args.seed)
-    shared = rng.integers(0, cfg.vocab, size=16).tolist()
-    for i in range(args.num_requests):
-        prompt = rng.integers(0, cfg.vocab,
-                              size=int(rng.integers(8, 33))).tolist()
-        if i % 3 == 0:
-            prompt = shared + prompt
-        engine.add_request(prompt, SamplingParams(max_new_tokens=16, seed=i))
-    t0 = time.perf_counter()
-    outs = engine.run_to_completion()
-    wall = time.perf_counter() - t0
-    for o in sorted(outs, key=lambda o: o.req_id):
-        print(f"[serve] req {o.req_id}: prompt={len(o.prompt)} "
-              f"new={len(o.tokens)} ({o.finish_reason}) "
-              f"lamp_rate={o.lamp_recompute_rate:.4f}")
-    s = engine.stats()
-    print(f"[serve] {cfg.name} on {device}: {s['num_finished']} requests, "
-          f"{s['steps']} mixed steps, {engine.generated_tokens} tokens in "
-          f"{wall:.3f} s ({engine.generated_tokens / wall:.1f} tok/s), "
-          f"prefix hit rate {s['cache_hit_rate']:.3f}, "
-          f"prefill chunks {s['prefill_chunks']}, "
-          f"LAMP recompute rate {s['lamp_recompute_rate']:.4f}")
+        max_model_len=max_len, use_lamp=not args.no_lamp,
+        speculative=args.speculative, draft_len=args.draft_len,
+        kernel=args.kernel, obs=obs, device=str(device)))
+    stream = build_stream(np.random.default_rng(args.seed), args, cfg.vocab)
+    print(f"[serve] arch={cfg.name} device={device} lamp={not args.no_lamp} "
+          f"qps={args.qps} requests={args.num_requests} "
+          f"pool={engine.pool.num_total}x{engine.pool.block_size} blocks "
+          f"kernel={args.kernel} speculative={args.speculative}")
+
+    outputs: List = []
+    with engine.obs.profile():
+        serve_stream(engine, stream, metrics_every=args.metrics_every,
+                     outputs=outputs)
+
+    # end-of-run report: exact percentiles over every finished request (the
+    # periodic lines use the streaming histogram estimates)
+    s = engine.stats(exact=True)
+    if args.trace_out:
+        path = engine.write_trace()
+        print(f"[serve] wrote Chrome trace ({len(engine.obs.tracer.events())} "
+              f"events, {engine.obs.tracer.dropped} dropped) to {path}")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(engine.metrics_snapshot(), f, indent=1)
+        print(f"[serve] wrote metrics snapshot to {args.metrics_out}")
+    mean_rate = (np.mean([o.lamp_recompute_rate for o in outputs])
+                 if outputs else 0.0)
+    print(f"[serve] finished {s['num_finished']}/{args.num_requests} requests "
+          f"in {s['elapsed_s']:.2f}s ({s['mixed_steps']} mixed steps, "
+          f"{s['launches']} launches, {s['preemptions']} preemptions)")
+    print(f"[serve] throughput {s['tokens_per_s']:.1f} tok/s, "
+          f"{s['requests_per_s']:.2f} req/s")
+    print(f"[serve] latency p50 {s['latency_p50_s'] * 1e3:.0f}ms  "
+          f"p99 {s['latency_p99_s'] * 1e3:.0f}ms  "
+          f"ttft p50 {s['ttft_p50_s'] * 1e3:.0f}ms")
+    print(f"[serve] kv-block utilization mean {s['kv_util_mean']:.2%} "
+          f"peak {s['kv_util_peak']:.2%}")
+    print(f"[serve] prefix cache: hit rate {s['cache_hit_rate']:.2%} "
+          f"({s['cached_tokens']} cached / {s['prefill_tokens_run']} run "
+          f"tokens), {s['blocks_saved']} blocks saved / "
+          f"{s['blocks_allocated']} allocated, {s['cow_copies']} COW copies, "
+          f"{s['cache_evictions']} evictions, "
+          f"{s['prefill_chunks']} prefill chunks, "
+          f"{s['resume_cached_tokens']} resume-cached tokens")
+    print(f"[serve] LAMP recompute rate: aggregate "
+          f"{s['lamp_recompute_rate']:.4f}, per-request mean {mean_rate:.4f}")
+    rates = s["lamp_layer_rates"]
+    if any(v > 0 for v in rates):
+        print("[serve] per-layer recompute rate: "
+              + " ".join(f"L{i}={r:.3f}" for i, r in enumerate(rates)))
+    if s["compiles"]:
+        print(f"[serve] first runs of a step bucket: {s['compiles']} "
+              f"({s['compile_time_s']:.2f}s wall): "
+              + " ".join(f"{e['kind']}{e['shape']}"
+                         for e in engine.compile_events))
+    phases = sorted(s["phase"].items(),
+                    key=lambda kv: -kv[1]["mean_us"] * kv[1]["count"])
+    print("[serve] phase wall time: "
+          + "  ".join(f"{name}={p['mean_us']:.0f}us x{p['count']}"
+                      for name, p in phases))
     if args.speculative:
-        acc = [o.spec_acceptance_rate for o in outs if o.spec_drafted]
+        acc = [o.spec_acceptance_rate for o in outputs if o.spec_drafted]
         print(f"[serve] speculative: {s['spec_rounds']} rounds, "
               f"acceptance {s['spec_acceptance_rate']:.2%} "
               f"(per-request mean {np.mean(acc) if acc else 0.0:.2%}), "

@@ -18,6 +18,27 @@ from repro_torch.kernels import paged_attention as PA
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
+# attention paths over the paged arena (the JAX package's `kernel`
+# argument): "cuda" calls the kernel wrappers, which launch the kernels for
+# CUDA tensors and run their plain versions for CPU tensors; "gather" calls
+# the plain versions by name, on any device
+KERNELS = ("cuda", "gather")
+
+
+def check_kernel(kernel: str) -> None:
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+
+
+def paged_attention_fns(kernel: str):
+    """(mixed-row, decode) paged attention of attention path `kernel`,
+    looked up when called, so a caller that wraps the wrappers' module
+    attributes sees the calls."""
+    check_kernel(kernel)
+    if kernel == "cuda":
+        return PA.paged_mixed_attention, PA.paged_decode_attention
+    return PA.paged_mixed_attention_plain, PA.paged_decode_attention_plain
+
 
 def dtype_of(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
@@ -83,7 +104,8 @@ def _project_qkv(cfg, p, x: torch.Tensor, positions: torch.Tensor):
 def paged_attention_decode_sublayer(cfg, p, x: torch.Tensor, *, arena_k,
                                     arena_v, block_tables, lengths,
                                     lamp_site: LampSite,
-                                    window: Optional[int] = None, tau=None):
+                                    window: Optional[int] = None, tau=None,
+                                    kernel: str = "cuda"):
     """Single-token decode against a paged KV arena (one layer).
 
     x: (R, 1, d) hidden states; arena_k / arena_v: (n_blocks, block_size,
@@ -94,7 +116,10 @@ def paged_attention_decode_sublayer(cfg, p, x: torch.Tensor, *, arena_k,
     at the effective length lengths + 1. `tau` (a float32 value on the
     device) overrides the site's threshold. Returns (out (R, 1, d),
     n_selected (R,), n_valid (R,)); n_valid = min(lengths + 1, window) * H
-    whatever the site, as in the JAX kernel branch."""
+    whatever the site, as in the JAX kernel branch. `kernel` is the
+    attention path (``KERNELS``). The query reaches attention in FP32,
+    whatever the model's dtype."""
+    _, attend = paged_attention_fns(kernel)
     R = x.shape[0]
     H, hd = cfg.n_heads, cfg.hd
     bs, n_max = arena_k.shape[1], block_tables.shape[1]
@@ -108,9 +133,9 @@ def paged_attention_decode_sublayer(cfg, p, x: torch.Tensor, *, arena_k,
     arena_v[blk, off] = v[:, 0].to(arena_v.dtype)
     window = window if window is not None else cfg.window
     eff = lengths + 1
-    out, nsel = PA.paged_decode_attention(
-        q.transpose(1, 2).contiguous(), arena_k, arena_v, block_tables, eff,
-        lamp_site, tau=tau, window=window)
+    out, nsel = attend(
+        q.transpose(1, 2).float().contiguous(), arena_k, arena_v,
+        block_tables, eff, lamp_site, tau=tau, window=window)
     cap = eff if window is None else torch.clamp(eff, max=window)
     nval = cap.to(torch.float32) * H
     out = out.transpose(1, 2).reshape(R, 1, H * hd).to(x.dtype)

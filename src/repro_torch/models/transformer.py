@@ -13,7 +13,9 @@ Window steps (`paged_mixed_step`, `paged_prefill_window`,
 `paged_decode_step` of the split step and the speculative draft through
 ``paged_decode_attention`` (``layers.paged_attention_decode_sublayer``).
 Each is the hand-written CUDA kernel for tensors on the card and its plain
-gather version for tensors on the CPU.
+gather version for tensors on the CPU. Every step takes `kernel`, the
+attention path (the JAX package's `kernel` argument): "cuda" calls those
+wrappers, "gather" their plain versions by name, on any device.
 """
 
 from __future__ import annotations
@@ -23,9 +25,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.core.policy import LampSite
-from repro_torch.kernels import paged_attention as PA
 
 from . import layers as LY
+from .layers import KERNELS, check_kernel  # noqa: F401 (the engine's, the CLI's)
 
 FAMILIES = ("dense", "gpt2")
 
@@ -124,17 +126,19 @@ def _kq_site(cfg, use_lamp: bool) -> LampSite:
 
 def paged_prefill_window(cfg, params, tokens, arena, block_tables, starts,
                          lengths, *, use_lamp: bool = True,
-                         per_layer: bool = False, taus=None):
+                         per_layer: bool = False, taus=None,
+                         kernel: str = "cuda"):
     """Prefill a window of each prompt against its block table: logits at
     each row's last valid window position. See ``paged_mixed_step``."""
     return paged_mixed_step(cfg, params, tokens, arena, block_tables, starts,
                             lengths, use_lamp=use_lamp, per_layer=per_layer,
-                            taus=taus, all_logits=False)
+                            taus=taus, all_logits=False, kernel=kernel)
 
 
 def paged_verify_window(cfg, params, tokens, arena, block_tables, starts,
                         lengths, *, use_lamp: bool = True,
-                        per_layer: bool = False, taus=None):
+                        per_layer: bool = False, taus=None,
+                        kernel: str = "cuda"):
     """The speculative verifier: row b runs `tokens` at absolute positions
     starts[b] .. starts[b] + lengths[b] - 1, (re)writing their K/V, and
     returns logits for every window position, (B, W, V) -- position j's are
@@ -142,12 +146,13 @@ def paged_verify_window(cfg, params, tokens, arena, block_tables, starts,
     lengths[b] are padding. See ``paged_mixed_step``."""
     return paged_mixed_step(cfg, params, tokens, arena, block_tables, starts,
                             lengths, use_lamp=use_lamp, per_layer=per_layer,
-                            taus=taus, all_logits=True)
+                            taus=taus, all_logits=True, kernel=kernel)
 
 
 def paged_decode_step(cfg, params, arena, block_tables, lengths, tokens, *,
                       use_lamp: bool = True, per_layer: bool = False,
-                      taus: Optional[torch.Tensor] = None):
+                      taus: Optional[torch.Tensor] = None,
+                      kernel: str = "cuda"):
     """One continuous-batch decode step over the paged arena.
 
     tokens: (R, 1) last sampled token per row; lengths: (R,) int32 cache
@@ -156,7 +161,8 @@ def paged_decode_step(cfg, params, arena, block_tables, lengths, tokens, *,
     carries the per-layer KQ thresholds; the LAMP rule comes from `cfg` (the
     speculative draft passes its draft config). Writes the arena in place
     and returns (logits (R, 1, V), arena, (n_selected, n_valid)): counts
-    (R,), or (L, R) with `per_layer`."""
+    (R,), or (L, R) with `per_layer`. `kernel`: the attention path."""
+    check_kernel(kernel)
     L = cfg.n_layers
     dev = tokens.device
     x = LY.embed(cfg, params["embed"], tokens.long(), lengths.long()[:, None])
@@ -170,7 +176,7 @@ def paged_decode_step(cfg, params, arena, block_tables, lengths, tokens, *,
         a, nsel, nval = LY.paged_attention_decode_sublayer(
             cfg, p_l["attn"], h, arena_k=arena["k"][l], arena_v=arena["v"][l],
             block_tables=block_tables, lengths=lengths, lamp_site=site,
-            tau=taus[l])
+            tau=taus[l], kernel=kernel)
         x = x + a
         h = LY.apply_norm(cfg, x, p_l, "ln2")
         x = x + LY.mlp_apply(cfg, p_l["mlp"], h)
@@ -187,7 +193,7 @@ def paged_decode_step(cfg, params, arena, block_tables, lengths, tokens, *,
 def paged_mixed_step(cfg, params, tokens, arena, block_tables, starts,
                      lengths, *, use_lamp: bool = True,
                      per_layer: bool = False, taus=None,
-                     all_logits: bool = False):
+                     all_logits: bool = False, kernel: str = "cuda"):
     """One fused serving step over a mixed row batch.
 
     tokens: (B, W) window tokens left-aligned per row, padded to the bucket
@@ -199,11 +205,11 @@ def paged_mixed_step(cfg, params, tokens, arena, block_tables, starts,
     Writes the window's K/V into `arena` in place and returns (logits,
     arena, (n_selected, n_valid)): logits (B, 1, V) at each row's last
     valid position, or (B, W, V) with `all_logits`; counts (B,), or (L, B)
-    with `per_layer`."""
+    with `per_layer`. `kernel`: the attention path (module docstring)."""
     B = tokens.shape[0]
     x, arena, counts = _paged_window_apply(
         cfg, params, tokens, arena, block_tables, starts, lengths,
-        use_lamp=use_lamp, per_layer=per_layer, taus=taus)
+        use_lamp=use_lamp, per_layer=per_layer, taus=taus, kernel=kernel)
     if not all_logits:
         last = torch.clamp(lengths.long(), min=1) - 1
         x = x[torch.arange(B, device=x.device), last][:, None]
@@ -212,12 +218,15 @@ def paged_mixed_step(cfg, params, tokens, arena, block_tables, starts,
 
 def _paged_window_apply(cfg, params, tokens, arena, block_tables, starts,
                         lengths, *, use_lamp: bool, per_layer: bool = False,
-                        taus: Optional[torch.Tensor] = None):
+                        taus: Optional[torch.Tensor] = None,
+                        kernel: str = "cuda"):
     """The layer stack over one window per row: the final-norm hidden
     states (B, W, d), the arena (updated in place), and per-row LAMP
     (n_selected, n_valid). `taus` ((L,) float32 on the device) carries the
     per-layer KQ thresholds; layer l's kernel reads taus[l] from device
-    memory."""
+    memory. The query heads reach attention in FP32, whatever the model's
+    dtype (the JAX kernels widen them inside; the CUDA kernel takes FP32)."""
+    attend, _ = LY.paged_attention_fns(kernel)
     B, W = tokens.shape
     dev = tokens.device
     n_max = block_tables.shape[1]
@@ -249,8 +258,8 @@ def _paged_window_apply(cfg, params, tokens, arena, block_tables, starts,
         # tokens all write the null block
         ck[blk, off] = k.to(ck.dtype)
         cv[blk, off] = v.to(cv.dtype)
-        qh = q.transpose(1, 2).contiguous()
-        o, nsel_rows = PA.paged_mixed_attention(
+        qh = q.transpose(1, 2).float().contiguous()
+        o, nsel_rows = attend(
             qh, ck, cv, block_tables, starts, lengths, site, tau=taus[l],
             window=cfg.window)
         if site.enabled:

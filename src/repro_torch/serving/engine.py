@@ -14,22 +14,42 @@ call. `mixed_exec="split"` runs the same plan through per-phase sub-steps
 token for token the same. Paged attention runs on the hand-written CUDA
 kernels when the engine's device is a card, and on their plain PyTorch
 versions on the CPU (``device="cpu"``, which the tests ask for).
+``EngineConfig.kernel="gather"`` runs the plain versions by name on any
+device: the counterpart of the JAX engine's attention-path knob, and the
+gather arm of a kernel-against-gather differential on a card.
 
 The engine runs on ``cuda`` unless the caller asks for the CPU, and raises
 when CUDA is asked for and absent: it never falls back.
+
+Observability (``repro_torch.obs``), as in the JAX engine: every step phase
+-- schedule, block alloc, the step's host work (mixed, draft, prefill,
+decode, verify), sync, emit -- runs inside an ``obs.span(...)``, feeding
+per-phase duration histograms (always on) and, with ``ObsConfig.trace``, a
+ring-buffered Chrome-trace exporter. The ``sync`` span wraps exactly the
+device-to-host copies the step makes anyway (sampled tokens, accepted
+counts, LAMP counts): on a card it is the wait for the device, the spans
+before it the host's enqueueing (where a pageable host-to-device copy
+inside them waits for the stream, that wait lands in them). The engine's
+counters live in the obs metrics registry (``stats()`` is a view over it;
+the attribute names are properties over the same counters). A compile
+event is the first run in the process of a (step function, bucket) key:
+the port has no jit cache, and that first run carries the kernel
+library's first-use build, cuBLAS's first-call setup and the caching
+allocator's growth (``reset_step_caches`` forgets the keys).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
+import json
 from collections import deque
-from typing import Callable, Deque, Dict, List, Optional
+from typing import Any, Callable, Deque, Dict, List, Optional, Set
 
 import numpy as np
 import torch
 
 from repro_torch.models import transformer
+from repro_torch.obs import ObsConfig, Observability
 
 from . import sampling as SM
 from . import speculative as SP
@@ -39,6 +59,17 @@ from .scheduler import Scheduler, StepPlan
 
 TEXT_FAMILIES = transformer.FAMILIES
 LAUNCH_KINDS = ("prefill", "decode", "draft", "verify", "mixed")
+
+# (step function, model/engine key, draft length, top-k variant, bucket)
+# keys run so far in this process: the counterpart of the JAX engine's jit
+# caches, whose growth it logs as compile events
+_STEP_KEYS: Set[tuple] = set()
+
+
+def reset_step_caches() -> None:
+    """Forget every step key run so far, so the next run of each logs a
+    compile event again (the JAX engine's ``reset_step_caches``)."""
+    _STEP_KEYS.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +97,18 @@ class EngineConfig:
     # when rows drafted) or "split" (the same plan through the prefill /
     # decode / speculative sub-steps: the differential twin)
     mixed_exec: str = "fused"
+    # attention path over the paged arena: "cuda" calls the kernel wrappers
+    # (the hand-written kernels on a card, their plain versions on the
+    # CPU); "gather" calls the plain versions by name on any device (the
+    # JAX engine's default path, and the arm a card differential holds the
+    # kernels against)
+    kernel: str = "cuda"
+    # observability: the metrics registry and per-phase histograms are
+    # always on; obs.trace additionally records step-phase spans for
+    # Chrome-trace export (see repro_torch.obs.ObsConfig)
+    obs: ObsConfig = ObsConfig()
+    # finished RequestOutputs retained for exact end-of-run percentiles
+    finished_retention: int = 1024
     device: str = "cuda"
 
 
@@ -122,6 +165,7 @@ class LampEngine:
         if econfig.mixed_exec not in ("fused", "split"):
             raise ValueError(f"mixed_exec must be 'fused' or 'split', got "
                              f"{econfig.mixed_exec!r}")
+        transformer.check_kernel(econfig.kernel)
         self.device = transformer.resolve_device(econfig.device)
         tok = params["embed"]["tok"]
         if tok.device.type != self.device.type:
@@ -140,7 +184,10 @@ class LampEngine:
                 f"cannot hold one max-length sequence: need "
                 f"{self.blocks_per_seq + 1} for max_model_len="
                 f"{self.max_model_len} at block_size={bs}")
-        self._now = clock or time.perf_counter
+        # every engine timestamp (arrivals, ttft, latency, trace spans) comes
+        # from this one injectable clock
+        self.obs = Observability(econfig.obs, clock=clock)
+        self._now = self.obs.now
         self.pool = PagedKVPool(cfg, n_blocks=n_blocks, block_size=bs,
                                 dtype=torch.float32,   # the kernel's K/V type
                                 enable_prefix_cache=econfig.prefix_cache,
@@ -150,42 +197,188 @@ class LampEngine:
             max_prefill_tokens=econfig.max_prefill_tokens,
             max_decode_batch=econfig.max_decode_batch,
             chunked_prefill=econfig.chunked_prefill,
-            spec_draft_len=econfig.draft_len if econfig.speculative else 0)
+            spec_draft_len=econfig.draft_len if econfig.speculative else 0,
+            obs=self.obs)
         self.spec_config = (SP.SpecConfig(draft_len=econfig.draft_len)
                             if econfig.speculative else None)
         self._next_id = 0
         self._seqs: Dict[int, Sequence] = {}          # live sequences only
-        self._finished: Deque[RequestOutput] = deque(maxlen=1024)
+        self._finished: Deque[RequestOutput] = deque(
+            maxlen=max(1, econfig.finished_retention))
         self._start: Optional[float] = None
         self._util_sum = 0.0
         self._util_n = 0
-        # cumulative counters (stats() reports them under the JAX engine's
-        # key names)
-        self.mixed_steps = 0
-        self.prefill_steps = 0      # mixed steps with a prefill row
-        self.decode_steps = 0       # mixed steps with a decode / verify row
-        self.spec_rounds = 0        # mixed steps with a drafting row
-        # step-function calls by kind (fused: "mixed", plus "draft" in a
-        # speculative round; split: "prefill", "decode", "draft", "verify")
-        self.launch_counts = dict.fromkeys(LAUNCH_KINDS, 0)
-        self.spec_drafted = 0
-        self.spec_accepted = 0
-        self.spec_emitted = 0
-        self._verify_sel = 0.0      # LAMP counts of the verify passes
-        self._verify_val = 0.0
-        self.prefill_chunks = 0
-        self.prefill_tokens_run = 0
-        self.generated_tokens = 0
-        self._n_finished = 0
-        self._cached_prefix = 0
-        self._cached_resume = 0
+        # the step keys' model part (hashed once: a frozen config hashes
+        # every field)
+        self._step_key = hash((cfg, econfig.use_lamp, econfig.kernel))
+
+        # -- metrics registry: the one source of truth for the engine's
+        # cumulative counters (stats() and the attribute properties below
+        # are views over it), under the JAX engine's names and labels;
+        # children resolved once, so the per-step cost is a float add
+        reg = self.obs.registry
+        steps = reg.counter("engine_steps_total",
+                            help="engine steps by kind", labels=("kind",))
+        self._c_prefill_steps = steps.labels("prefill")
+        self._c_decode_steps = steps.labels("decode")
+        self._c_spec_rounds = steps.labels("spec")
+        self._c_mixed_steps = steps.labels("mixed")
+        # role presence per mixed step (a mixed step with any prefill row
+        # counts as a prefill step, etc.)
+        mixed_roles = reg.counter(
+            "engine_mixed_steps_total",
+            help="mixed fused steps containing each row role",
+            labels=("role",))
+        self._c_mixed_prefill = mixed_roles.labels("prefill")
+        self._c_mixed_decode = mixed_roles.labels("decode")
+        self._c_mixed_verify = mixed_roles.labels("verify")
+        launches = reg.counter(
+            "engine_launches_total",
+            help="step-function calls by kind (fused: mixed, plus draft in "
+                 "a speculative round; split: prefill, decode, draft, "
+                 "verify)", labels=("fn",))
+        self._c_launches = {name: launches.labels(name)
+                            for name in LAUNCH_KINDS}
+        self._c_prefill_chunks = reg.counter(
+            "engine_prefill_chunks_total",
+            help="partial prefill windows (prompt continued next step)")
+        self._c_prefill_tokens = reg.counter(
+            "engine_prefill_tokens_total",
+            help="prompt tokens actually computed", unit="tokens")
+        self._c_generated = reg.counter(
+            "engine_generated_tokens_total", help="tokens emitted",
+            unit="tokens")
+        self._c_finished = reg.counter(
+            "engine_requests_finished_total", help="requests completed")
+        cached = reg.counter(
+            "engine_cached_tokens_total",
+            help="prompt tokens served from cached KV (prefix = "
+                 "cross-request hits, resume = own KV after preemption)",
+            unit="tokens", labels=("kind",))
+        self._c_cached_prefix = cached.labels("prefix")
+        self._c_cached_resume = cached.labels("resume")
+        spec = reg.counter("engine_spec_tokens_total",
+                           help="speculative-decoding token flow",
+                           labels=("event",))
+        self._c_spec_drafted = spec.labels("drafted")
+        self._c_spec_accepted = spec.labels("accepted")
+        self._c_spec_emitted = spec.labels("emitted")
+        lamp = reg.counter("lamp_kq_products_total",
+                           help="KQ products by layer and disposition "
+                                "(selected = recomputed in high precision)",
+                           labels=("layer", "kind"))
         L = cfg.n_layers
+        self._c_lamp_sel = [lamp.labels(str(l), "selected") for l in range(L)]
+        self._c_lamp_val = [lamp.labels(str(l), "valid") for l in range(L)]
+        vspec = reg.counter("lamp_verify_products_total",
+                            help="LAMP counts of speculative verify passes",
+                            labels=("kind",))
+        self._c_verify_sel = vspec.labels("selected")
+        self._c_verify_val = vspec.labels("valid")
+        self._h_latency = reg.histogram(
+            "engine_request_latency_seconds",
+            help="request arrival -> finish", unit="s")
+        self._h_ttft = reg.histogram(
+            "engine_request_ttft_seconds",
+            help="request arrival -> first token", unit="s")
+        # registered with the JAX engine's names; they stay 0 until the port
+        # has the recovery ladder and the admission bound
+        reg.counter("engine_recoveries_total",
+                    help="recovery actions absorbed without failing the "
+                         "engine", labels=("action",))
+        reg.counter("engine_requests_failed_total",
+                    help="requests individually failed (engine kept "
+                         "serving)", labels=("reason",))
+        # per-layer accumulators mirrored into the counters above (numpy, so
+        # the per-step update is one vector add), and a bounded time series
+        # of each step's per-layer recompute rates
         self._layer_sel = np.zeros((L,), np.float64)
         self._layer_val = np.zeros((L,), np.float64)
+        self.layer_rate_series = deque(maxlen=econfig.obs.series_capacity)
         # live per-layer LAMP thresholds, read by the kernel from device
         # memory (the static site tau; a later slice's policy moves them)
         self.taus = torch.full((L,), float(cfg.lamp.kq.tau),
                                dtype=torch.float32, device=self.device)
+
+    # -- counter attributes: views over the metrics registry ----------------
+
+    @property
+    def prefill_steps(self) -> int:
+        """Steps with a prefill row."""
+        return int(self._c_prefill_steps.value + self._c_mixed_prefill.value)
+
+    @property
+    def decode_steps(self) -> int:
+        """Steps with a decode or verify row."""
+        return int(self._c_decode_steps.value + self._c_spec_rounds.value
+                   + self._c_mixed_decode.value)
+
+    @property
+    def total_steps(self) -> int:
+        return int(self._c_prefill_steps.value + self._c_decode_steps.value
+                   + self._c_spec_rounds.value + self._c_mixed_steps.value)
+
+    @property
+    def mixed_steps(self) -> int:
+        return int(self._c_mixed_steps.value)
+
+    @property
+    def spec_rounds(self) -> int:
+        """Mixed steps with a drafting row."""
+        return int(self._c_spec_rounds.value + self._c_mixed_verify.value)
+
+    @property
+    def launch_counts(self) -> Dict[str, int]:
+        """Step-function calls by kind."""
+        return {name: int(c.value) for name, c in self._c_launches.items()}
+
+    @property
+    def launches(self) -> int:
+        return int(sum(c.value for c in self._c_launches.values()))
+
+    @property
+    def prefill_chunks(self) -> int:
+        return int(self._c_prefill_chunks.value)
+
+    @property
+    def prefill_tokens_run(self) -> int:
+        return int(self._c_prefill_tokens.value)
+
+    @property
+    def generated_tokens(self) -> int:
+        return int(self._c_generated.value)
+
+    @property
+    def agg_lamp_selected(self) -> float:
+        return float(self._layer_sel.sum())
+
+    @property
+    def agg_lamp_valid(self) -> float:
+        return float(self._layer_val.sum())
+
+    @property
+    def spec_drafted(self) -> int:
+        return int(self._c_spec_drafted.value)
+
+    @property
+    def spec_accepted(self) -> int:
+        return int(self._c_spec_accepted.value)
+
+    @property
+    def spec_emitted(self) -> int:
+        return int(self._c_spec_emitted.value)
+
+    @property
+    def spec_verify_selected(self) -> float:
+        return self._c_verify_sel.value
+
+    @property
+    def spec_verify_valid(self) -> float:
+        return self._c_verify_val.value
+
+    @property
+    def compile_events(self):
+        return self.obs.compile_events
 
     # -- request intake -----------------------------------------------------
 
@@ -223,21 +416,26 @@ class LampEngine:
         """Run one engine step; returns the requests it finished."""
         if self._start is None:
             self._start = self._now()
-        plan = self.scheduler.schedule()
+        with self.obs.span("schedule"):
+            plan = self.scheduler.schedule()
         if plan is None:
             return []
         if self.econfig.mixed_exec == "split":
             self._step_mixed_split(plan)
         else:
             self._step_mixed(plan)
-        self.mixed_steps += 1
+        self._c_mixed_steps.inc()
         roles = plan.roles or []
-        self.prefill_steps += any(r == "prefill" for r in roles)
-        self.decode_steps += any(r != "prefill" for r in roles)
-        self.spec_rounds += self._spec_round(plan.draft_lens)
+        if any(r == "prefill" for r in roles):
+            self._c_mixed_prefill.inc()
+        if any(r != "prefill" for r in roles):
+            self._c_mixed_decode.inc()
+        if self._spec_round(plan.draft_lens):
+            self._c_mixed_verify.inc()
         self._util_sum += self.pool.utilization
         self._util_n += 1
-        return self._collect_finished(plan.seqs)
+        with self.obs.span("emit"):
+            return self._collect_finished(plan.seqs)
 
     def _batch_arrays(self, seqs: List[Sequence], Bb: int):
         bt = np.zeros((Bb, self.blocks_per_seq), np.int32)
@@ -259,24 +457,50 @@ class LampEngine:
     def _spec_round(self, draft_lens) -> bool:
         return self.spec_config is not None and any(draft_lens)
 
-    def _account_lamp(self, seqs: List[Sequence], nsel: torch.Tensor,
-                      nval: torch.Tensor, *, verify: bool = False,
+    def _first_run(self, fn: str, shape: tuple, topks: np.ndarray) -> bool:
+        """Whether this is the process's first run of step function `fn`
+        (keyed as the JAX engine keys its jitted functions: model config,
+        LAMP flag, attention path, draft length, top-k variant) at bucket
+        `shape`: the port's compile event. Marks the key as run."""
+        key = (fn, self._step_key, self.econfig.draft_len
+               if fn in ("draft", "verify", "mixed_spec") else 0,
+               bool(topks.any()), shape)
+        if key in _STEP_KEYS:
+            return False
+        _STEP_KEYS.add(key)
+        return True
+
+    def _account_lamp(self, seqs: List[Sequence], nsel: np.ndarray,
+                      nval: np.ndarray, *, verify: bool = False,
                       verify_cols: Optional[List[int]] = None) -> None:
-        """Fold one step's per-layer (L, Bb) counts into the engine's
-        per-layer totals (every bucket column, padded rows included, as the
-        JAX engine sums them) and each sequence's breakdown. `verify=True`
-        credits the whole batch to the verify counters (a split speculative
-        round); `verify_cols` only those columns (a fused mixed step whose
-        decode rows verified)."""
-        nsel, nval = nsel.cpu().numpy(), nval.cpu().numpy()
-        self._layer_sel += nsel.sum(axis=1)
-        self._layer_val += nval.sum(axis=1)
+        """Fold one step's per-layer (L, Bb) counts (on the host) into the
+        per-layer counters (every bucket column, padded rows included, as
+        the JAX engine sums them), the recompute-rate time series and each
+        sequence's breakdown. `verify=True` credits the whole batch to the
+        verify counters (a split speculative round); `verify_cols` only
+        those columns (a fused mixed step whose decode rows verified)."""
+        sel_l = nsel.sum(axis=1)
+        val_l = nval.sum(axis=1)
+        self._layer_sel += sel_l
+        self._layer_val += val_l
+        for l in range(len(sel_l)):
+            self._c_lamp_sel[l].inc(float(sel_l[l]))
+            self._c_lamp_val[l].inc(float(val_l[l]))
         if verify:
-            self._verify_sel += float(nsel.sum())
-            self._verify_val += float(nval.sum())
+            self._c_verify_sel.inc(float(sel_l.sum()))
+            self._c_verify_val.inc(float(val_l.sum()))
         elif verify_cols:
-            self._verify_sel += float(nsel[:, verify_cols].sum())
-            self._verify_val += float(nval[:, verify_cols].sum())
+            self._c_verify_sel.inc(float(nsel[:, verify_cols].sum()))
+            self._c_verify_val.inc(float(nval[:, verify_cols].sum()))
+        if val_l.sum() > 0:
+            rates = np.divide(sel_l, val_l, out=np.zeros_like(sel_l),
+                              where=val_l > 0)
+            self.layer_rate_series.append((self.total_steps, rates))
+            if self.obs.tracer.enabled:
+                self.obs.tracer.counter(
+                    "lamp_recompute_rate",
+                    **{f"layer{l}": round(float(r), 6)
+                       for l, r in enumerate(rates)})
         for i, seq in enumerate(seqs):
             seq.lamp.add_layers(nsel[:, i], nval[:, i])
 
@@ -286,21 +510,21 @@ class LampEngine:
                        now: float) -> None:
         seq.prefill_cursor += w
         seq.cache_len = seq.prefill_cursor
-        self.prefill_tokens_run += w
+        self._c_prefill_tokens.inc(w)
         if self.econfig.prefix_cache:
             self.pool.register_prefix(seq.prefill_tokens(), seq.block_ids,
                                       seq.cache_len, hashes=seq.prefix_hashes)
         if seq.prefill_remaining == 0:
             seq.status = SequenceStatus.DECODE
             seq.on_token(tok, now)
-            self.generated_tokens += 1
+            self._c_generated.inc()
         else:
-            self.prefill_chunks += 1
+            self._c_prefill_chunks.inc()
 
     def _after_decode(self, seq: Sequence, tok: int, now: float) -> None:
         seq.cache_len += 1
         seq.on_token(tok, now)
-        self.generated_tokens += 1
+        self._c_generated.inc()
 
     def _after_verify(self, seq: Sequence, kd: int, n_acc: int,
                       emit: np.ndarray, now: float) -> None:
@@ -308,21 +532,21 @@ class LampEngine:
         the request's own limits, then roll back the blocks that held
         rejected (or surplus) draft K/V."""
         seq.spec_drafted += kd
-        self.spec_drafted += kd
+        self._c_spec_drafted.inc(kd)
         appended = 0
         for t in emit[:n_acc + 1]:
             seq.on_token(int(t), now)
             appended += 1
-            self.generated_tokens += 1
+            self._c_generated.inc()
             if seq.should_stop():
                 break
         # only drafts actually kept count as accepted: a stop inside the
         # accepted run drops the surplus
         kept = min(n_acc, appended)
         seq.spec_accepted += kept
-        self.spec_accepted += kept
+        self._c_spec_accepted.inc(kept)
         seq.cache_len += appended
-        self.spec_emitted += appended
+        self._c_spec_emitted.inc(appended)
         seq.block_ids = self.pool.rollback(seq.block_ids, seq.cache_len)
         # the kept tail was written by this round's verify window, in blocks
         # the draft budget allocated privately past every registered prefix
@@ -345,18 +569,22 @@ class LampEngine:
             tok0[j], lengths[j], kdv[j] = seq.last_token, seq.cache_len, kd[j]
         return (tok0, lengths, kdv) + self._batch_arrays(seqs, Rb)
 
-    def _draft(self, bucket):
-        """The draft over a `_decode_bucket`: returns the draft tokens
-        (Rb, k) and logits (Rb, k, V) on the device."""
+    def _draft(self, bucket, rows: int):
+        """The draft over a `_decode_bucket` of `rows` live rows, inside the
+        "draft" span: returns the draft tokens (Rb, k) and logits (Rb, k, V)
+        on the device, and the span (for a compile event's wall time)."""
         tok0, lengths, kdv, bt, seeds, counts, temps, topks = bucket
-        out = SP.draft(self.cfg, self.params,
-                       {"k": self.pool.k, "v": self.pool.v}, self._dev(bt),
-                       self._dev(lengths), self._dev(tok0), kdv,
-                       self.spec_config, use_lamp=self.econfig.use_lamp,
-                       seeds=seeds, counts=counts, temps=temps,
-                       top_k=topks if topks.any() else None)
-        self.launch_counts["draft"] += 1
-        return out
+        with self.obs.span("draft", rows=rows, bucket=[len(tok0)]) as sp:
+            out = SP.draft(self.cfg, self.params,
+                           {"k": self.pool.k, "v": self.pool.v},
+                           self._dev(bt), self._dev(lengths), self._dev(tok0),
+                           kdv, self.spec_config,
+                           use_lamp=self.econfig.use_lamp,
+                           kernel=self.econfig.kernel, seeds=seeds,
+                           counts=counts, temps=temps,
+                           top_k=topks if topks.any() else None)
+        self._c_launches["draft"].inc()
+        return out, sp
 
     def _step_mixed(self, plan: StepPlan) -> None:
         """Run one mixed plan as one bucketed (rows, max_window) batch. A
@@ -390,33 +618,52 @@ class LampEngine:
             qlens[i] = w
         bt, seeds, counts, temps, topks = self._batch_arrays(seqs, Bb)
         top = topks if topks.any() else None
-        tokens_t = self._dev(tokens)
         if spec_round:
             k = self.spec_config.draft_len
             dseqs = [seqs[i] for i in dec_rows]
             kd = [draft_lens[i] for i in dec_rows]
-            d_toks, d_logits = self._draft(self._decode_bucket(dseqs, kd))
-            rows = torch.as_tensor(dec_rows, device=self.device)
-            tokens_t[rows, 1:k + 1] = d_toks[:len(dec_rows)].to(torch.int32)
-        logits, _, (nsel, nval) = transformer.paged_mixed_step(
-            self.cfg, self.params, tokens_t,
-            {"k": self.pool.k, "v": self.pool.v}, self._dev(bt),
-            self._dev(starts), self._dev(qlens), use_lamp=self.econfig.use_lamp,
-            per_layer=True, taus=self.taus, all_logits=spec_round)
-        self.launch_counts["mixed"] += 1
-        if spec_round:
-            last = logits[torch.arange(Bb, device=self.device),
-                          self._dev(qlens).long() - 1]
-            # accept only over the verify rows: the rule is row-wise
-            emit, n_acc = SP.speculative_accept(
-                logits[rows, :k + 1], d_toks[:len(dec_rows)],
-                d_logits[:len(dec_rows)], kd, seeds[dec_rows],
-                counts[dec_rows], temps[dec_rows],
-                None if top is None else top[dec_rows])
-            emit, n_acc = emit.cpu().numpy(), n_acc.cpu().numpy()
-        else:
-            last = logits[:, -1]
-        nxt = SM.sample_rows(last, seeds, counts, temps, top).cpu().numpy()
+            dbucket = self._decode_bucket(dseqs, kd)
+            first_draft = self._first_run("draft", (len(dbucket[0]),),
+                                          dbucket[-1])
+            (d_toks, d_logits), spd = self._draft(dbucket, len(dseqs))
+            if first_draft:
+                self.obs.record_compile("draft", (len(dbucket[0]),),
+                                        spd.elapsed, self.total_steps)
+        first = self._first_run("mixed_spec" if spec_round else "window",
+                                (Bb, Wb), topks)
+        with self.obs.span("mixed", rows=len(seqs), bucket=[Bb, Wb],
+                           tokens=int(sum(windows))) as sp:
+            tokens_t = self._dev(tokens)
+            if spec_round:
+                rows = torch.as_tensor(dec_rows, device=self.device)
+                tokens_t[rows, 1:k + 1] = d_toks[:len(dec_rows)].to(torch.int32)
+            logits, _, (nsel, nval) = transformer.paged_mixed_step(
+                self.cfg, self.params, tokens_t,
+                {"k": self.pool.k, "v": self.pool.v}, self._dev(bt),
+                self._dev(starts), self._dev(qlens),
+                use_lamp=self.econfig.use_lamp, kernel=self.econfig.kernel,
+                per_layer=True, taus=self.taus, all_logits=spec_round)
+            if spec_round:
+                last = logits[torch.arange(Bb, device=self.device),
+                              self._dev(qlens).long() - 1]
+                # accept only over the verify rows: the rule is row-wise
+                emit, n_acc = SP.speculative_accept(
+                    logits[rows, :k + 1], d_toks[:len(dec_rows)],
+                    d_logits[:len(dec_rows)], kd, seeds[dec_rows],
+                    counts[dec_rows], temps[dec_rows],
+                    None if top is None else top[dec_rows])
+            else:
+                last = logits[:, -1]
+            nxt = SM.sample_rows(last, seeds, counts, temps, top)
+        self._c_launches["mixed"].inc()
+        with self.obs.span("sync"):
+            if spec_round:
+                emit, n_acc = emit.cpu().numpy(), n_acc.cpu().numpy()
+            nxt = nxt.cpu().numpy()
+            nsel, nval = nsel.cpu().numpy(), nval.cpu().numpy()
+        if first:
+            self.obs.record_compile("mixed", (Bb, Wb), sp.elapsed,
+                                    self.total_steps)
         now = self._now()
         self._account_lamp(seqs, nsel, nval,
                            verify_cols=dec_rows if spec_round else None)
@@ -463,14 +710,24 @@ class LampEngine:
             starts[i] = cur
             lengths[i] = w
         bt, seeds, counts, temps, topks = self._batch_arrays(seqs, Bb)
-        logits, _, (nsel, nval) = transformer.paged_prefill_window(
-            self.cfg, self.params, self._dev(tokens),
-            {"k": self.pool.k, "v": self.pool.v}, self._dev(bt),
-            self._dev(starts), self._dev(lengths),
-            use_lamp=self.econfig.use_lamp, per_layer=True, taus=self.taus)
-        self.launch_counts["prefill"] += 1
-        nxt = SM.sample_rows(logits[:, -1], seeds, counts, temps,
-                             topks if topks.any() else None).cpu().numpy()
+        first = self._first_run("window", (Bb, Wb), topks)
+        with self.obs.span("prefill", rows=len(seqs), bucket=[Bb, Wb],
+                           tokens=int(sum(windows))) as sp:
+            logits, _, (nsel, nval) = transformer.paged_prefill_window(
+                self.cfg, self.params, self._dev(tokens),
+                {"k": self.pool.k, "v": self.pool.v}, self._dev(bt),
+                self._dev(starts), self._dev(lengths),
+                use_lamp=self.econfig.use_lamp, kernel=self.econfig.kernel,
+                per_layer=True, taus=self.taus)
+            nxt = SM.sample_rows(logits[:, -1], seeds, counts, temps,
+                                 topks if topks.any() else None)
+        self._c_launches["prefill"].inc()
+        with self.obs.span("sync"):
+            nxt = nxt.cpu().numpy()
+            nsel, nval = nsel.cpu().numpy(), nval.cpu().numpy()
+        if first:
+            self.obs.record_compile("prefill", (Bb, Wb), sp.elapsed,
+                                    self.total_steps)
         now = self._now()
         self._account_lamp(seqs, nsel, nval)
         for i, (seq, w) in enumerate(zip(seqs, windows)):
@@ -481,13 +738,23 @@ class LampEngine:
         kernel)."""
         tok0, lengths, _, bt, seeds, counts, temps, topks = \
             self._decode_bucket(seqs, [0] * len(seqs))
-        logits, _, (nsel, nval) = transformer.paged_decode_step(
-            self.cfg, self.params, {"k": self.pool.k, "v": self.pool.v},
-            self._dev(bt), self._dev(lengths), self._dev(tok0[:, None]),
-            use_lamp=self.econfig.use_lamp, per_layer=True, taus=self.taus)
-        self.launch_counts["decode"] += 1
-        nxt = SM.sample_rows(logits[:, -1], seeds, counts, temps,
-                             topks if topks.any() else None).cpu().numpy()
+        Rb = len(tok0)
+        first = self._first_run("decode", (Rb,), topks)
+        with self.obs.span("decode", rows=len(seqs), bucket=[Rb]) as sp:
+            logits, _, (nsel, nval) = transformer.paged_decode_step(
+                self.cfg, self.params, {"k": self.pool.k, "v": self.pool.v},
+                self._dev(bt), self._dev(lengths), self._dev(tok0[:, None]),
+                use_lamp=self.econfig.use_lamp, kernel=self.econfig.kernel,
+                per_layer=True, taus=self.taus)
+            nxt = SM.sample_rows(logits[:, -1], seeds, counts, temps,
+                                 topks if topks.any() else None)
+        self._c_launches["decode"].inc()
+        with self.obs.span("sync"):
+            nxt = nxt.cpu().numpy()
+            nsel, nval = nsel.cpu().numpy(), nval.cpu().numpy()
+        if first:
+            self.obs.record_compile("decode", (Rb,), sp.elapsed,
+                                    self.total_steps)
         now = self._now()
         self._account_lamp(seqs, nsel, nval)
         for i, seq in enumerate(seqs):
@@ -500,16 +767,29 @@ class LampEngine:
         with budget 0 runs a verify-only round: one plain decode step's
         progress."""
         bucket = self._decode_bucket(seqs, draft_lens)
-        d_toks, d_logits = self._draft(bucket)
         tok0, lengths, kd, bt, seeds, counts, temps, topks = bucket
-        emit, n_acc, nsel, nval = SP.verify(
-            self.cfg, self.params, {"k": self.pool.k, "v": self.pool.v},
-            self._dev(bt), self._dev(lengths), self._dev(tok0), d_toks,
-            d_logits, kd, self.spec_config, use_lamp=self.econfig.use_lamp,
-            taus=self.taus, seeds=seeds, counts=counts, temps=temps,
-            top_k=topks if topks.any() else None)
-        self.launch_counts["verify"] += 1
-        emit, n_acc = emit.cpu().numpy(), n_acc.cpu().numpy()
+        Rb = len(tok0)
+        first_d = self._first_run("draft", (Rb,), topks)
+        first_v = self._first_run("verify", (Rb,), topks)
+        (d_toks, d_logits), spd = self._draft(bucket, len(seqs))
+        with self.obs.span("verify", rows=len(seqs), bucket=[Rb]) as spv:
+            emit, n_acc, nsel, nval = SP.verify(
+                self.cfg, self.params, {"k": self.pool.k, "v": self.pool.v},
+                self._dev(bt), self._dev(lengths), self._dev(tok0), d_toks,
+                d_logits, kd, self.spec_config, use_lamp=self.econfig.use_lamp,
+                kernel=self.econfig.kernel, taus=self.taus, seeds=seeds,
+                counts=counts, temps=temps,
+                top_k=topks if topks.any() else None)
+        self._c_launches["verify"].inc()
+        with self.obs.span("sync"):
+            emit, n_acc = emit.cpu().numpy(), n_acc.cpu().numpy()
+            nsel, nval = nsel.cpu().numpy(), nval.cpu().numpy()
+        if first_d:
+            self.obs.record_compile("draft", (Rb,), spd.elapsed,
+                                    self.total_steps)
+        if first_v:
+            self.obs.record_compile("verify", (Rb,), spv.elapsed,
+                                    self.total_steps)
         now = self._now()
         self._account_lamp(seqs, nsel, nval, verify=True)
         for i, seq in enumerate(seqs):
@@ -539,9 +819,11 @@ class LampEngine:
                 spec_accepted=seq.spec_accepted,
                 lamp_layer_selected=lamp_l_sel, lamp_layer_valid=lamp_l_val)
             self._finished.append(out)
-            self._n_finished += 1
-            self._cached_prefix += seq.num_cached_tokens
-            self._cached_resume += seq.num_resume_cached_tokens
+            self._c_finished.inc()
+            self._c_cached_prefix.inc(seq.num_cached_tokens)
+            self._c_cached_resume.inc(seq.num_resume_cached_tokens)
+            self._h_latency.observe(out.latency)
+            self._h_ttft.observe(out.ttft)
             self._seqs.pop(seq.req_id, None)
             done.append(out)
         return done
@@ -557,31 +839,70 @@ class LampEngine:
         return [float(s / v) if v else 0.0
                 for s, v in zip(self._layer_sel, self._layer_val)]
 
-    def stats(self) -> Dict[str, object]:
-        """Cumulative serving stats, under the JAX engine's key names.
-        Percentiles are exact over the last 1024 finished requests."""
+    def _sync_gauges(self) -> None:
+        """Publish point-in-time state (pool, scheduler) into the registry
+        so snapshots and exposition carry it; counters update in the hot
+        path."""
+        reg = self.obs.registry
+        reg.gauge("engine_live_requests", help="requests queued or running"
+                  ).set(len(self.scheduler.waiting) + len(self.scheduler.running))
+        reg.gauge("kv_blocks_used", help="arena blocks in use").set(
+            self.pool.num_used)
+        reg.gauge("kv_util", help="arena utilization").set(
+            self.pool.utilization)
+        reg.gauge("kv_util_peak").set(self.pool.peak_used
+                                      / self.pool.num_total)
+        reg.gauge("engine_preemptions", help="recompute-style evictions"
+                  ).set(self.scheduler.num_preemptions)
+        reg.gauge("kv_blocks_allocated_total").set(self.pool.total_allocs)
+        reg.gauge("kv_blocks_prefix_hits_total").set(self.pool.hit_blocks)
+        reg.gauge("kv_cow_copies_total").set(self.pool.cow_copies)
+        reg.gauge("kv_cache_evictions_total").set(self.pool.evictions)
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """JSON-serializable dump of the whole metrics registry."""
+        self._sync_gauges()
+        return self.obs.registry.snapshot()
+
+    def stats(self, exact: bool = False) -> Dict[str, object]:
+        """Cumulative serving stats under the JAX engine's key names (a view
+        over the metrics registry). Latency and TTFT percentiles come from
+        the streaming histograms; `exact=True` computes them exactly over
+        the retained finished requests (the last `finished_retention`)."""
         elapsed = (self._now() - self._start) if self._start else 0.0
-        lat = [o.latency for o in self._finished]
-        ttft = [o.ttft for o in self._finished]
-        cached = self._cached_prefix + sum(
+        if exact:
+            lat = [o.latency for o in self._finished]
+            ttft = [o.ttft for o in self._finished]
+            lat_p50 = float(np.percentile(lat, 50)) if lat else 0.0
+            lat_p99 = float(np.percentile(lat, 99)) if lat else 0.0
+            ttft_p50 = float(np.percentile(ttft, 50)) if ttft else 0.0
+        else:
+            lat_p50 = self._h_latency.quantile(0.5)
+            lat_p99 = self._h_latency.quantile(0.99)
+            ttft_p50 = self._h_ttft.quantile(0.5)
+        cached = int(self._c_cached_prefix.value) + sum(
             s.num_cached_tokens for s in self._seqs.values())
-        resume_cached = self._cached_resume + sum(
+        resume_cached = int(self._c_cached_resume.value) + sum(
             s.num_resume_cached_tokens for s in self._seqs.values())
-        sel, val = float(self._layer_sel.sum()), float(self._layer_val.sum())
+        generated = self.generated_tokens
+        n_done = int(self._c_finished.value)
+        phase = {name: {"mean_us": h.mean * 1e6, "count": h.count}
+                 for name, h in self.obs._phase_children.items() if h.count}
+        sel, val = self.agg_lamp_selected, self.agg_lamp_valid
         return {
-            "num_finished": self._n_finished,
+            "num_finished": n_done,
             "elapsed_s": elapsed,
-            "tokens_per_s": self.generated_tokens / elapsed if elapsed else 0.0,
-            "requests_per_s": self._n_finished / elapsed if elapsed else 0.0,
-            "latency_p50_s": float(np.percentile(lat, 50)) if lat else 0.0,
-            "latency_p99_s": float(np.percentile(lat, 99)) if lat else 0.0,
-            "ttft_p50_s": float(np.percentile(ttft, 50)) if ttft else 0.0,
-            "steps": self.mixed_steps,
+            "tokens_per_s": generated / elapsed if elapsed else 0.0,
+            "requests_per_s": n_done / elapsed if elapsed else 0.0,
+            "latency_p50_s": lat_p50,
+            "latency_p99_s": lat_p99,
+            "ttft_p50_s": ttft_p50,
+            "steps": self.total_steps,
             "prefill_steps": self.prefill_steps,
             "decode_steps": self.decode_steps,
             "mixed_steps": self.mixed_steps,
-            "launches": sum(self.launch_counts.values()),
-            "launches_by_fn": dict(self.launch_counts),
+            "launches": self.launches,
+            "launches_by_fn": self.launch_counts,
             "prefill_chunks": self.prefill_chunks,
             "preemptions": self.num_preemptions,
             "blocks_allocated": self.pool.total_allocs,
@@ -597,6 +918,11 @@ class LampEngine:
             "kv_util_peak": self.pool.peak_used / self.pool.num_total,
             "lamp_recompute_rate": sel / val if val else 0.0,
             "lamp_layer_rates": self.lamp_layer_rates(),
+            # first runs of a (step function, bucket) key (compile events)
+            "compiles": len(self.compile_events),
+            "compile_time_s": sum(e["wall_s"] for e in self.compile_events),
+            # per-phase wall time (mean us + sample count per phase)
+            "phase": phase,
             "live_requests": (len(self.scheduler.waiting)
                               + len(self.scheduler.running)),
             "spec_rounds": self.spec_rounds,
@@ -606,13 +932,51 @@ class LampEngine:
                                      if self.spec_drafted else 0.0),
             "spec_tokens_per_round": (self.spec_emitted / self.spec_rounds
                                       if self.spec_rounds else 0.0),
-            "verify_recompute_rate": (self._verify_sel / self._verify_val
-                                      if self._verify_val else 0.0),
+            "verify_recompute_rate": (self.spec_verify_selected
+                                      / self.spec_verify_valid
+                                      if self.spec_verify_valid else 0.0),
+            # the JAX engine's policy, audit and fault-tolerance keys: this
+            # engine has none of those parts yet
+            "policy": {"enabled": False},
+            "audit": {"enabled": False},
+            "recoveries": 0,
+            "failed_requests": 0,
+            "faults": {"enabled": False},
         }
+
+    def write_trace(self, path: Optional[str] = None) -> str:
+        """Write the buffered step-phase trace as Chrome trace JSON
+        (loadable in Perfetto / chrome://tracing). Requires
+        ObsConfig.trace; `path` defaults to ObsConfig.trace_path."""
+        return self.obs.write_trace(path)
+
+    def _hang_diagnostic(self, n_events: int = 16) -> str:
+        """The registry's scalar metrics, the live sequences and the trace
+        tail, for the run_to_completion error: a hung stream is debuggable
+        from the log alone."""
+        self._sync_gauges()
+        scalars = {k: v for k, v in self.obs.registry.snapshot().items()
+                   if isinstance(v, (int, float))}
+        lines = ["registry snapshot: " + json.dumps(scalars, sort_keys=True)]
+        seqs = list(self.scheduler.running) + list(self.scheduler.waiting)
+        lines.append("live sequences: " + "; ".join(
+            f"req {s.req_id} {s.status.value} gen={s.num_generated}"
+            f"/{s.sampling.max_new_tokens} blocks={len(s.block_ids)}"
+            for s in seqs[:8]))
+        if self.obs.tracer.enabled:
+            evs = self.obs.tracer.last(n_events)
+            lines.append(f"last {len(evs)} trace events: " + "; ".join(
+                f"{name}@{ts:.3f}s+{dur * 1e3:.2f}ms"
+                for _, name, _, ts, dur, _ in evs))
+        else:
+            lines.append("trace ring empty (enable EngineConfig.obs.trace "
+                         "for span-level hang forensics)")
+        return "\n".join(lines)
 
     def run_to_completion(self, max_steps: int = 100000) -> List[RequestOutput]:
         """Drive step() until every queued request finishes; raises when
-        `max_steps` elapse with requests still live."""
+        `max_steps` elapse with requests still live, with a diagnostic
+        snapshot (registry scalars, live sequences, trace tail)."""
         out: List[RequestOutput] = []
         for _ in range(max_steps):
             if not self.has_unfinished():
@@ -620,4 +984,6 @@ class LampEngine:
             out.extend(self.step())
         raise RuntimeError(
             f"run_to_completion exceeded max_steps={max_steps} with "
-            f"{self.stats()['live_requests']} request(s) still live")
+            f"{self.stats()['live_requests']} request(s) still live "
+            f"({int(self._c_finished.value)} finished); the stream is hung "
+            f"or max_steps is too small\n" + self._hang_diagnostic())

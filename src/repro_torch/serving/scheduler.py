@@ -1,5 +1,5 @@
 """Continuous-batching scheduler (port of ``repro/serving/scheduler.py``,
-fused mixed plans only, no observability hooks).
+fused mixed plans only).
 
 Policy (vLLM-v0 style, adapted to fixed-shape buckets):
 
@@ -40,6 +40,7 @@ block and the oldest request can always eventually run to completion.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import deque
 from typing import Deque, List, Optional, Set
@@ -68,8 +69,14 @@ class StepPlan:
 class Scheduler:
     def __init__(self, pool: PagedKVPool, *, max_prefill_batch: int = 8,
                  max_prefill_tokens: int = 2048, max_decode_batch: int = 32,
-                 chunked_prefill: bool = False, spec_draft_len: int = 0):
+                 chunked_prefill: bool = False, spec_draft_len: int = 0,
+                 obs=None):
         self.pool = pool
+        # optional Observability (repro_torch.obs): block-alloc spans and
+        # preemption instants; None (standalone scheduler tests): no-ops
+        self._obs = obs
+        self._span = (obs.span if obs is not None
+                      else lambda name, **kw: contextlib.nullcontext())
         self.max_prefill_batch = max_prefill_batch
         self.max_prefill_tokens = max_prefill_tokens
         self.max_decode_batch = max_decode_batch
@@ -109,6 +116,9 @@ class Scheduler:
             victim.preempt()
             self.waiting.appendleft(victim)
             self.num_preemptions += 1
+            if self._obs is not None and self._obs.tracer.enabled:
+                self._obs.tracer.instant("preempt", cat="sched",
+                                         req=victim.req_id)
             return True
         return False
 
@@ -130,7 +140,8 @@ class Scheduler:
             - len(seq.block_ids)
         if need > 0:
             try:
-                seq.block_ids.extend(self.pool.alloc(need))
+                with self._span("alloc", blocks=need, req=seq.req_id):
+                    seq.block_ids.extend(self.pool.alloc(need))
             except ArenaAllocFault:
                 # degrade: this row skips its chunk this step and retries
                 # next step (nothing was allocated, nothing to unwind)
@@ -193,7 +204,8 @@ class Scheduler:
                 # still reused, which num_cached_tokens reflects)
                 self.pool.hit_blocks -= 1
             if need_new > 0:
-                seq.block_ids.extend(self.pool.alloc(need_new))
+                with self._span("alloc", blocks=need_new, req=seq.req_id):
+                    seq.block_ids.extend(self.pool.alloc(need_new))
         except ArenaAllocFault:
             # degrade: unwind the partial admission (drop the shared owners,
             # restore the hit accounting) and defer the sequence; it stays
@@ -306,9 +318,12 @@ class Scheduler:
                     need += deficits[-1]
                 if need <= self.pool.num_free:
                     try:
-                        for seq, deficit in zip(batch, deficits):
-                            if deficit:
-                                seq.block_ids.extend(self.pool.alloc(deficit))
+                        if need > 0:
+                            with self._span("alloc", blocks=need):
+                                for seq, deficit in zip(batch, deficits):
+                                    if deficit:
+                                        seq.block_ids.extend(
+                                            self.pool.alloc(deficit))
                     except ArenaAllocFault:
                         # degrade and re-grant: blocks already extended stay
                         # owned; the recomputed deficits skip them

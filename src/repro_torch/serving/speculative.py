@@ -134,14 +134,16 @@ def speculative_accept(verify_logits: torch.Tensor, draft_tokens: torch.Tensor,
 def draft(cfg, params, arena, block_tables: torch.Tensor,
           lengths: torch.Tensor, tok0: torch.Tensor, kd: Sequence[int],
           spec: SpecConfig, *, use_lamp: bool, seeds, counts, temps,
-          top_k=None) -> Tuple[torch.Tensor, torch.Tensor]:
+          top_k=None, kernel: str = "cuda"
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`draft_len` low-precision paged decode steps (rule "none", through
     the decode kernel), each proposal drawn from the draft distribution
     with the SALT_DRAFT stream. Row r freezes at its budget kd[r]: step j
     writes position lengths + min(j, kd). block_tables, lengths (int32) and
     tok0 lie on the arena's device; kd, seeds, counts, temps and top_k are
-    host sequences. Returns (draft_tokens (R, k) int64, draft_logits
-    (R, k, V) float32)."""
+    host sequences; `kernel` is the attention path
+    (``transformer.paged_decode_step``). Returns (draft_tokens (R, k)
+    int64, draft_logits (R, k, V) float32)."""
     dcfg = draft_model_config(cfg) if use_lamp else cfg
     kd_t = torch.as_tensor(np.asarray(kd), device=lengths.device).to(lengths.dtype)
     counts = np.asarray(counts, np.int64)
@@ -151,7 +153,7 @@ def draft(cfg, params, arena, block_tables: torch.Tensor,
         len_j = lengths + torch.clamp(kd_t, max=j)
         logits, _, _ = transformer.paged_decode_step(
             dcfg, params, arena, block_tables, len_j, tok[:, None],
-            use_lamp=use_lamp)
+            use_lamp=use_lamp, kernel=kernel)
         lg = logits[:, -1]
         nxt = SM.sample_rows(lg, seeds, counts + j, temps, top_k,
                              salt=SM.SALT_DRAFT)
@@ -165,7 +167,8 @@ def verify(cfg, params, arena, block_tables: torch.Tensor,
            lengths: torch.Tensor, tok0: torch.Tensor,
            draft_tokens: torch.Tensor, draft_logits: torch.Tensor,
            kd: Sequence[int], spec: SpecConfig, *, use_lamp: bool,
-           taus: Optional[torch.Tensor], seeds, counts, temps, top_k=None):
+           taus: Optional[torch.Tensor], seeds, counts, temps, top_k=None,
+           kernel: str = "cuda"):
     """One window [tok0, d_1..d_k], padded to `verify_width`, at positions
     lengths .. lengths + kd with the engine's LAMP rule (rewriting their
     K/V), then `speculative_accept`. Returns (emit, n_accepted, n_selected
@@ -180,7 +183,7 @@ def verify(cfg, params, arena, block_tables: torch.Tensor,
                             ).to(torch.int32)
     logits, _, (nsel, nval) = transformer.paged_verify_window(
         cfg, params, win, arena, block_tables, lengths, qlens,
-        use_lamp=use_lamp, per_layer=True, taus=taus)
+        use_lamp=use_lamp, kernel=kernel, per_layer=True, taus=taus)
     emit, n_acc = speculative_accept(logits, draft_tokens, draft_logits, kd,
                                      seeds, counts, temps, top_k)
     return emit, n_acc, nsel, nval

@@ -1,7 +1,10 @@
 """Rules of the port that no differential test shows: it imports nothing of
-JAX or of the JAX package, its engine never falls back from CUDA to the
-CPU, and CPU tensors never launch a kernel."""
+JAX or of the JAX package (its observability package included), its engine
+never falls back from CUDA to the CPU, and CPU tensors never launch a
+kernel; and the serve CLI runs on the CPU, writing its trace and metrics
+files."""
 
+import json
 import os
 import subprocess
 import sys
@@ -25,6 +28,8 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 micro = {"repro_torch.kernels." + m for m in
          ("flash_decode", "lamp_attention", "ps_matmul", "rmsnorm")}
 assert micro | {"repro_torch.launch.kernels_micro"} <= set(names), names
+obs = {"repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.tracing"}
+assert obs <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -71,3 +76,23 @@ def test_serve_cli_on_cpu(capsys):
                        "cpu"]) == 0
     out = capsys.readouterr().out
     assert "3 requests" in out and "LAMP recompute rate" in out
+
+
+def test_serve_cli_writes_trace_and_metrics(tmp_path, capsys):
+    """--trace-out / --metrics-out on the CPU (speculative, the gather
+    path): a Chrome trace with the step's spans and a registry snapshot
+    whose counts agree with the summary."""
+    trace, metrics = tmp_path / "t.json", tmp_path / "m.json"
+    assert serve.main(["--reduced", "--num-requests", "3", "--device", "cpu",
+                       "--qps", "50", "--speculative", "--kernel", "gather",
+                       "--trace-out", str(trace),
+                       "--metrics-out", str(metrics)]) == 0
+    out = capsys.readouterr().out
+    assert "wrote Chrome trace" in out and "phase wall time" in out
+    doc = json.load(open(trace))
+    spans = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    assert {"schedule", "mixed", "draft", "sync", "emit"} <= spans
+    snap = json.load(open(metrics))
+    assert snap["engine_requests_finished_total"] == 3
+    assert snap["engine_live_requests"] == 0
+    assert snap["engine_phase_seconds"]["phase=sync"]["count"] > 0

@@ -10,7 +10,8 @@ out in float32:
 - y_low in dot_low_chunked's chunk order (each chunk's products and sums
   rounded to FP32, the running sum rounded to PS(mu) after each chunk);
   where y_low is the FP32 product rounded (granularity 0, g >= hd, mu >= 23)
-  or LAMP is off, the FP32 product by fmaf in d order, as dot_exact;
+  or LAMP is off, the FP32 product d ascending with each product and sum
+  rounded to float32, as dot_exact;
 - pass 1 per split and query: smax and m are maxima, l the sum of
   exp(y - m) in the kernel's order (a thread's keys in j order, xor
   butterflies over a warp's 32 lanes, then a row's warps in order); pass 2
@@ -29,12 +30,11 @@ The transcendental functions are torch's float32 ones, as the plain
 versions', so that what is compared is the order of the sums.
 
 Tolerances: every live query within rtol 2e-5 / atol 2e-6 of the plain
-version and of JAX; counts exact for relaxed and relaxed_ln at
-granularity >= 1, rule none and LAMP off; one count a query row of slack
-(``count_slack``) for the strict rule (its normalizer l is summed in
-another order by the kernel than by the plain version) and at granularity
-0 (the FP32 dot before the PS(mu) rounding is a sequential fma chain in
-the kernel, a matmul in the plain version). Against JAX, a query row where
+version and of JAX; counts exact for relaxed and relaxed_ln at every
+granularity, rule none and LAMP off (the plain versions sum y_low and the
+FP32 product in the kernel's order); one count a query row of slack
+(``count_slack``) for the strict rule only (its normalizer l is summed in
+another order by the kernel than by the plain version). Against JAX, a query row where
 JAX's Pallas y_low (``repro.kernels.paged_attention._y_low``) rounds a
 live key one PS(mu) step apart from the port's order is found by computing
 y_low in both packages (``jax_apart``): at most APART_ROWS such rows a
@@ -78,8 +78,7 @@ SITES = {
 
 
 def count_slack(site) -> int:
-    return int(site.enabled and site.rule != "none" and
-               (site.rule == "strict" or site.granularity == 0))
+    return int(site.enabled and site.rule == "strict")
 
 
 # --------------------------------------------------------------- emulation
@@ -97,8 +96,8 @@ def tlog(x):
 
 
 def fma(a, b, c):
-    """fmaf in float32: the product and the sum taken in float64 (the
-    product exactly), rounded once."""
+    """fmaf in float32 (P.V's accumulation): the product and the sum taken
+    in float64 (the product exactly), rounded once."""
     return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
             + np.asarray(c, np.float64)).astype(F32)
 
@@ -115,7 +114,7 @@ def logits(qt, kt, site, hd):
     if exact:
         ye = np.zeros(a.shape[:-1][:2] + (b.shape[2],), F32)
         for d in range(hd):
-            ye = fma(a[..., d], b[..., d], ye)
+            ye = f32(ye + f32(a[..., d] * b[..., d]))
         return (rtm(ye, site.mu) if site.enabled else ye), ye
     y = np.zeros(a.shape[:2] + (b.shape[2],), F32)
     for s in range(0, hd, g):
@@ -246,7 +245,7 @@ def emulate(q, k, v, bt, starts, qlens, site, *, tau=None, window=None,
                     if ye is None:
                         ye = np.zeros_like(y)
                         for d in range(hd):
-                            ye = fma(qt[:, :, None, d], kt[:, None, :, d], ye)
+                            ye = f32(ye + f32(qt[:, :, None, d] * kt[:, None, :, d]))
                     yv = np.where(sel, ye, y)
                 pr = np.where(ok, yv, NEG)
                 m2 = pr.max(-1)
