@@ -83,9 +83,26 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            greedy tokens; tokens and per-request counts are compared end
            to end and the differences printed; glm4-9b-2l once more with
            its weights cast to FP32 (the same checks)
+  faults   the recovery half on GPT-2 small, phase engine's stream: chaos
+           with speculation on (fused, draft_len 4, paranoid, all five
+           fault sites) must finish every request with phase engine's
+           greedy tokens, each site fired, recoveries by action equal to
+           the trace's recover:* instants, and the paged kernels' launches
+           what the engine's counters predict (the one-row retries
+           included); ladder exhaustion (health_max_abs 1e-9, max_retries
+           2: on the card GPT-2's ladder is the retry rung alone) fails
+           every request alone and recovers none; a 500-step stall is
+           cleared by the watchdog; max_queue 2 rejects the third request;
+           defrag() every 5 steps; the guard on and off alternated twice
+           (tokens gated, tokens/s and the mixed / sync means printed)
 
-and last the line {"ok": true, "device": {...}}. Weights are random, drawn
-from a seed.
+The loud rule holds for every engine run of every phase but the ladder
+exhaustion run: no recovery through the gather or FP32 rung (they run the
+plain versions instead of the kernels; the "cuda" path's ladder on the
+card has neither, a "gather" path engine's has the FP32 rung) and no
+failed request, so a kernel that returns non-finite logits fails this
+script instead of being recovered. Last comes the line {"ok": true, "device": {...}}. Weights are
+random, drawn from a seed.
 """
 
 from __future__ import annotations
@@ -507,17 +524,43 @@ def engine_requests(cfg):
     return reqs
 
 
-def run_engine(params, cfg, **options):
-    """Serve the stream; returns (engine, outputs, wall seconds). Each
-    step's wall time is kept on `engine.step_ms` under its kind: whether it
-    ran a speculative round ("spec") or not ("plain"), with prefill rows
-    ("+prefill") or without."""
+def recoveries_by_action(eng):
+    fam = eng.obs.registry.get("engine_recoveries_total")
+    return {key[0]: int(c.value) for key, c in fam.items() if c.value}
+
+
+def check_loud(eng, what):
+    """The loud rule: a recovery through a rung that runs the plain
+    versions in place of the kernels (gather, FP32), or a request that
+    failed alone, would hide a kernel fault: it fails the run."""
+    by_action = recoveries_by_action(eng)
+    hidden = {a: by_action.get(a, 0) for a in ("gather", "fp32")}
+    failed = eng.stats()["failed_requests"]
+    require(not any(hidden.values()) and failed == 0,
+            f"{what}: recoveries through the plain versions {hidden}, "
+            f"failed requests {failed}")
+
+
+def make_engine(params, cfg, requests=True, **options):
+    """The engine of every run (phase engine's settings), with its 8 greedy
+    requests added unless `requests` is False."""
     from repro_torch.serving import EngineConfig, LampEngine, SamplingParams
     eng = LampEngine(cfg, params, EngineConfig(
         block_size=BS, max_model_len=320, n_blocks=8 * 20 + 1,
         max_prefill_tokens=128, device=DEVICE, **options))
-    for i, prompt in enumerate(engine_requests(cfg)):
-        eng.add_request(prompt, SamplingParams(max_new_tokens=32, seed=i))
+    if requests:
+        for i, prompt in enumerate(engine_requests(cfg)):
+            eng.add_request(prompt, SamplingParams(max_new_tokens=32, seed=i))
+    return eng
+
+
+def run_engine(params, cfg, loud=True, **options):
+    """Serve the stream; returns (engine, outputs, wall seconds). Each
+    step's wall time is kept on `engine.step_ms` under its kind: whether it
+    ran a speculative round ("spec") or not ("plain"), with prefill rows
+    ("+prefill") or without. Applies the loud rule unless `loud` is
+    False (the ladder exhaustion run only)."""
+    eng = make_engine(params, cfg, **options)
     eng.step_ms = collections.defaultdict(list)
     outs = []
     torch.cuda.synchronize()
@@ -531,7 +574,10 @@ def run_engine(params, cfg, **options):
             ("+prefill" if eng.prefill_steps > prefills else "")
         eng.step_ms[kind].append(1e3 * (time.perf_counter() - s0))
     torch.cuda.synchronize()
-    return eng, outs, time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    if loud:
+        check_loud(eng, f"engine run {options}")
+    return eng, outs, wall
 
 
 def step_breakdown(eng):
@@ -1201,6 +1247,146 @@ def phase_gather(params, cfg, gather_arm):
     require(ok_all, "kernel and gather engine runs disagree")
 
 
+# chaos on the speculative fused run: every site at a rate that fires in
+# its first 14 steps for this salt (fault_hash is a pure function of (step,
+# site, salt)); draft faults need drafting rows, which come once the
+# prompts are in (steps 8-13: draft fires at 10, 12, 13)
+CHAOS = dict(enabled=True, salt=6, nan_rate=0.3, draft_rate=0.3,
+             step_rate=0.2, alloc_rate=0.1, stall_rate=0.05, stall_steps=2,
+             stall_s=0.0)
+
+
+def phase_faults(params, cfg, ref_tokens):
+    """The recovery half on GPT-2 small (module docstring)."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import transformer as TT
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serving import FaultConfig, QueueFullError, SamplingParams
+    from repro_torch.serving.faults import FAULT_SITES
+    from repro_torch.serving.speculative import draft_model_config
+    t0 = time.perf_counter()
+    checks = {}
+    L = cfg.n_layers
+
+    def tokens(outs):
+        return {o.req_id: o.tokens for o in outs}
+
+    # chaos, speculation on, fused
+    PA._wrapper.launches = PA._decode_wrapper.launches = 0
+    eng, outs, wall = run_engine(
+        params, cfg, speculative=True, draft_len=SPEC_DRAFT_LEN,
+        paranoid=True, faults=FaultConfig(**CHAOS), stall_patience=8,
+        obs=ObsConfig(trace=True))
+    mix_l, dec_l = PA._wrapper.launches, PA._decode_wrapper.launches
+    lc = eng.launch_counts
+    site, dsite = TT._kq_site(cfg, True), TT._kq_site(draft_model_config(cfg), True)
+    exp_dec = (lc["draft"] * SPEC_DRAFT_LEN * L * PA.passes(dsite)
+               + lc["decode"] * L * PA.passes(site))
+    exp_mix = (lc["mixed"] + lc["prefill"] + lc["verify"]) * L * PA.passes(site)
+    st = eng.stats()
+    by_site = st["faults"]["by_site"]
+    by_action = recoveries_by_action(eng)
+    instants = collections.Counter(
+        name.split(":", 1)[1] for _, name, *_ in eng.obs.tracer.events()
+        if name.startswith("recover:"))
+    eng.pool.check_invariants(eng._seqs.values())
+    checks["chaos_finished_clean"] = (len(outs) == 8 and all(
+        o.error is None for o in outs))
+    checks["chaos_tokens_equal_phase_engine"] = tokens(outs) == ref_tokens
+    checks["chaos_every_site_fired"] = all(by_site[s] > 0 for s in FAULT_SITES)
+    checks["chaos_recoveries_equal_trace"] = by_action == dict(instants)
+    checks["chaos_launches_predicted"] = (mix_l == exp_mix > 0
+                                          and dec_l == exp_dec > 0)
+    chaos = {"steps": eng.mixed_steps, "launches_by_fn": lc,
+             "mixed_kernel_launches": mix_l, "expected_mixed": exp_mix,
+             "decode_kernel_launches": dec_l, "expected_decode": exp_dec,
+             "by_site": by_site, "recoveries": by_action,
+             "failed_requests": st["failed_requests"],
+             "tokens_per_s": eng.generated_tokens / wall}
+
+    # ladder exhaustion: every rung unhealthy under the 1e-9 bound, every
+    # request fails alone; on the card the "cuda" path's ladder ends
+    # before the plain-version rungs (GPT-2's site is strict: retry alone)
+    eng, outs, _ = run_engine(params, cfg, loud=False, health_max_abs=1e-9,
+                              max_retries=2)
+    eng.pool.check_invariants(eng._seqs.values())
+    ladder = "/".join(a for a, *_ in eng._retry_ladder())
+    checks["exhaustion_ladder_on_the_kernels"] = all(
+        r[3] == "cuda" for r in eng._retry_ladder())
+    checks["exhaustion_fails_alone"] = (
+        len(outs) == 8 and not eng.has_unfinished()
+        and all(o.finish_reason == "unhealthy" and f"[{ladder}]" in o.error
+                for o in outs)
+        and eng.stats()["failed_requests"] == 8 and not recoveries_by_action(eng))
+    exhaustion = {"ladder": ladder, "failed": eng.stats()["failed_requests"],
+                  "retry_launches": eng.launch_counts["prefill"]}
+
+    # the watchdog clears a 500-step stall
+    eng = make_engine(params, cfg, stall_patience=4, faults=FaultConfig(
+        enabled=True, salt=1, stall_rate=1.0, max_faults=1, stall_steps=500,
+        stall_s=0.0))
+    outs = eng.run_to_completion()
+    check_loud(eng, "watchdog run")
+    checks["watchdog_clears_stall"] = (
+        tokens(outs) == ref_tokens
+        and recoveries_by_action(eng) == {"stall_clear": 1}
+        and eng.stats()["faults"]["by_site"]["stall"] == 1)
+
+    # admission bound
+    eng = make_engine(params, cfg, requests=False, max_queue=2)
+    prompts = engine_requests(cfg)
+    for i in range(2):
+        eng.add_request(prompts[i], SamplingParams(max_new_tokens=32, seed=i))
+    try:
+        eng.add_request(prompts[2], SamplingParams(max_new_tokens=32, seed=2))
+        rejected = False
+    except QueueFullError:
+        rejected = True
+    outs = eng.run_to_completion()
+    check_loud(eng, "admission run")
+    checks["admission_rejects_third"] = (
+        rejected and tokens(outs) == {i: ref_tokens[i] for i in range(2)})
+
+    # defrag every 5 steps
+    eng = make_engine(params, cfg)
+    outs, n, moved = [], 0, 0
+    while eng.has_unfinished():
+        outs.extend(eng.step())
+        n += 1
+        if n % 5 == 0:
+            before = [list(q.block_ids) for q in eng.scheduler.running]
+            eng.defrag()
+            moved += sum(a != list(q.block_ids) for a, q in
+                         zip(before, eng.scheduler.running))
+    check_loud(eng, "defrag run")
+    eng.pool.check_invariants(eng._seqs.values())
+    checks["defrag_tokens_unchanged"] = tokens(outs) == ref_tokens
+
+    # the guard's cost, on and off alternated twice (tokens gated)
+    guard = []
+    for _ in range(2):
+        for on in (True, False):
+            e2, o2, w2 = run_engine(params, cfg, health_guard=on)
+            ph = e2.stats()["phase"]
+            guard.append({"health_guard": on,
+                          "tokens_per_s": e2.generated_tokens / w2,
+                          "mixed_mean_us": ph["mixed"]["mean_us"],
+                          "sync_mean_us": ph["sync"]["mean_us"],
+                          "tokens_equal": tokens(o2) == ref_tokens})
+    checks["guard_on_off_tokens_equal"] = all(g["tokens_equal"] for g in guard)
+    seconds = time.perf_counter() - t0
+    print("faults by_site " + json.dumps(by_site) + " recoveries "
+          + json.dumps(chaos["recoveries"])
+          + f" failed_requests {chaos['failed_requests']}"
+          + f" (exhaustion run: {exhaustion['failed']}) seconds {seconds:.2f}",
+          flush=True)
+    emit("faults", chaos=chaos, exhaustion=exhaustion,
+         defrag={"calls": n // 5, "tables_moved": moved},
+         guard_on_off=guard, seconds=seconds, checks=checks,
+         ok=all(checks.values()))
+    require(all(checks.values()), f"faults phase failed its checks: {checks}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_device()
@@ -1221,6 +1407,7 @@ def main() -> int:
                          spec_launches["decode"])
     phase_obs(params, cfg, ref_tokens)
     phase_gather(params, cfg, gather_arm)
+    phase_faults(params, cfg, ref_tokens)
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows + micro_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Serve a synthetic Poisson request stream with the port's LAMP engine (the
-port of ``repro/launch/serve.py``'s stream and observability flags).
+port of ``repro/launch/serve.py``'s stream, observability and fault-tolerance
+flags).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2 --reduced \
         --qps 8 --num-requests 8 --device cpu [--speculative] \
@@ -23,6 +24,14 @@ All loop timing runs off the engine's one clock (`engine.obs.now`), so
 `serve_stream` is deterministic under a fake clock. `--kernel gather` runs
 the paged attention's plain versions instead of the kernels. Runs on CUDA
 unless `--device cpu`.
+
+Fault tolerance: `--deadline S` gives every request a wall-clock TTL,
+`--max-queue N` bounds the admission queue (rejected arrivals are logged and
+skipped), and `--fault-nan/alloc/draft/step/stall R` inject deterministic
+faults at those per-step rates (`--fault-salt` is the replay key,
+`--fault-max` caps the total). With faults on the summary gains a
+`[serve] faults:` line; any request that failed alone (timeout, exhausted
+recovery ladder, stall) or was rejected makes the CLI exit 1.
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ import numpy as np
 from repro_torch.configs import get_config, list_archs, reduced as reduce_cfg
 from repro_torch.models import transformer
 from repro_torch.obs import ObsConfig
-from repro_torch.serving import EngineConfig, LampEngine, SamplingParams
+from repro_torch.serving import (EngineConfig, FaultConfig, LampEngine,
+                                 QueueFullError, SamplingParams)
 from repro_torch.serving.engine import TEXT_FAMILIES
 
 
@@ -59,7 +69,8 @@ def build_stream(rng: np.random.Generator, args, vocab: int):
         prompt = shared + rng.integers(0, vocab, size=plen).tolist()
         sampling = SamplingParams(max_new_tokens=new,
                                   temperature=args.temperature, seed=i,
-                                  top_k=args.top_k)
+                                  top_k=args.top_k,
+                                  deadline_s=getattr(args, "deadline", 0.0))
         reqs.append((float(arrivals[i]), prompt, sampling))
     return reqs
 
@@ -89,9 +100,13 @@ def serve_stream(engine: LampEngine, stream, *,
     """Drive the engine over a pre-built (arrival_s, prompt, sampling)
     stream. Every timestamp -- arrivals, idle waits, the snapshot cadence --
     comes from the engine's own clock (`engine.obs.now`), so a fake clock
-    plus a clock-advancing `sleep` makes the whole loop deterministic. Pass
-    `outputs` to share the result list with the caller: requests finished
-    before a mid-stream exception stay visible for reporting."""
+    plus a clock-advancing `sleep` makes the whole loop deterministic.
+
+    A bounded admission queue (EngineConfig.max_queue) rejects arrivals
+    with QueueFullError; rejected requests are logged and skipped, the
+    stream keeps serving. Pass `outputs` to share the result list with the
+    caller: requests finished before a mid-stream exception stay visible
+    for reporting."""
     clock = engine.obs.now
     if sleep is None:
         sleep = time.sleep
@@ -104,12 +119,19 @@ def serve_stream(engine: LampEngine, stream, *,
         now = clock() - t0
         while i < len(stream) and stream[i][0] <= now:
             arr, prompt, sampling = stream[i]
-            engine.add_request(prompt, sampling, arrival_time=t0 + arr)
+            try:
+                engine.add_request(prompt, sampling, arrival_time=t0 + arr)
+            except QueueFullError as e:
+                log(f"[serve]   req at t={arr:.2f}s REJECTED: {e}")
             i += 1
         done = engine.step()
         outputs.extend(done)
         if per_request:
             for o in done:
+                if o.error is not None:
+                    log(f"[serve]   req {o.req_id:>3d} FAILED "
+                        f"({o.finish_reason}): {o.error}")
+                    continue
                 log(f"[serve]   req {o.req_id:>3d} done: "
                     f"prompt={len(o.prompt)} new={len(o.tokens)} "
                     f"latency={o.latency * 1e3:7.1f}ms "
@@ -161,6 +183,41 @@ def main(argv=None) -> int:
                          "non-speculative decoding)")
     ap.add_argument("--draft-len", type=int, default=4,
                     help="speculative draft tokens per sequence per round")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="per-request wall-clock TTL in seconds; an "
+                         "expired request is cancelled with "
+                         "finish_reason='timeout' and its blocks freed "
+                         "(0 = no deadline)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission queue: reject arrivals once "
+                         "this many requests are waiting (0 = unbounded)")
+    ap.add_argument("--fault-nan", type=float, default=0.0,
+                    help="deterministic fault injection: per-step "
+                         "probability of poisoning one row's logits/KV "
+                         "with NaN (exercises the health guard + recovery "
+                         "ladder)")
+    ap.add_argument("--fault-alloc", type=float, default=0.0,
+                    help="fault injection: per-step probability of failing "
+                         "the next KV-block allocation (degrades to "
+                         "deferral, never crashes)")
+    ap.add_argument("--fault-draft", type=float, default=0.0,
+                    help="fault injection: per-step probability of "
+                         "corrupting one row's speculative draft tokens "
+                         "(the verifier rejects them)")
+    ap.add_argument("--fault-step", type=float, default=0.0,
+                    help="fault injection: per-step probability of a "
+                         "fused-step launch anomaly (degrades that step to "
+                         "the split twin)")
+    ap.add_argument("--fault-stall", type=float, default=0.0,
+                    help="fault injection: per-step probability of an "
+                         "artificial stall (no-progress steps the "
+                         "watchdog must clear)")
+    ap.add_argument("--fault-salt", type=int, default=0,
+                    help="salt for the deterministic fault hash: same "
+                         "salt + rates + stream replays the same faults "
+                         "bit-for-bit")
+    ap.add_argument("--fault-max", type=int, default=0,
+                    help="cap total injected faults (0 = unlimited)")
     ap.add_argument("--metrics-every", type=float, default=0.0,
                     help="print a one-line metrics snapshot every S seconds "
                          "of stream time (0 = off)")
@@ -192,10 +249,18 @@ def main(argv=None) -> int:
     params = transformer.init_params(cfg, args.seed, device=device)
     obs = ObsConfig(trace=bool(args.trace_out), trace_path=args.trace_out,
                     torch_profile_dir=args.torch_profile)
+    fault_rates = dict(nan_rate=args.fault_nan, alloc_rate=args.fault_alloc,
+                       draft_rate=args.fault_draft,
+                       step_rate=args.fault_step,
+                       stall_rate=args.fault_stall)
+    faults = FaultConfig(enabled=any(r > 0 for r in fault_rates.values()),
+                         salt=args.fault_salt, max_faults=args.fault_max,
+                         **fault_rates)
     engine = LampEngine(cfg, params, EngineConfig(
         max_model_len=max_len, use_lamp=not args.no_lamp,
         speculative=args.speculative, draft_len=args.draft_len,
-        kernel=args.kernel, obs=obs, device=str(device)))
+        kernel=args.kernel, obs=obs, device=str(device), faults=faults,
+        max_queue=args.max_queue))
     stream = build_stream(np.random.default_rng(args.seed), args, cfg.vocab)
     print(f"[serve] arch={cfg.name} device={device} lamp={not args.no_lamp} "
           f"qps={args.qps} requests={args.num_requests} "
@@ -260,7 +325,26 @@ def main(argv=None) -> int:
               f"(per-request mean {np.mean(acc) if acc else 0.0:.2%}), "
               f"{s['spec_tokens_per_round']:.2f} tokens/round, "
               f"verify recompute rate {s['verify_recompute_rate']:.4f}")
-    return 0
+    if s["faults"]["enabled"] or s["recoveries"] or s["failed_requests"]:
+        f = s["faults"]
+        by = (" ".join(f"{k}={v}" for k, v in f["by_site"].items())
+              if f["enabled"] else "off")
+        print(f"[serve] faults: injected="
+              f"{f['injected'] if f['enabled'] else 0} ({by}), "
+              f"recoveries={s['recoveries']}, "
+              f"failed_requests={s['failed_requests']}")
+    # exit non-zero when any request failed alone (timeout, exhausted
+    # recovery ladder, stall eviction) or was rejected at admission, so a
+    # chaos run can gate on a clean stream
+    failed = [o for o in outputs if o.error is not None]
+    rejected = args.num_requests - len(outputs)
+    for o in failed:
+        print(f"[serve] FAILED req {o.req_id} ({o.finish_reason}): "
+              f"{o.error}")
+    if rejected > 0:
+        print(f"[serve] {rejected} request(s) rejected at admission "
+              f"(queue bound {args.max_queue})")
+    return 1 if failed or rejected > 0 else 0
 
 
 if __name__ == "__main__":

@@ -36,6 +36,27 @@ event is the first run in the process of a (step function, bucket) key:
 the port has no jit cache, and that first run carries the kernel
 library's first-use build, cuBLAS's first-call setup and the caching
 allocator's growth (``reset_step_caches`` forgets the keys).
+
+Fault tolerance (``serving/faults.py``), as in the JAX engine: with
+`health_guard` (the default) every step also reduces, on the device, a
+per-row health scalar -- max |logit| over the row's live positions -- and
+copies it to the host inside the `sync` span with the step's LAMP counts.
+A non-finite row (or one above `health_max_abs`) is quarantined: its
+bookkeeping is skipped and its window re-runs alone through the recovery
+ladder (`retry_ladder`, bounded by `max_retries`) before the request fails
+alone with `RequestOutput.error`. With the "cuda" path on a card the
+ladder is retry -> strict rule: a rung that ran the plain versions in
+place of the kernels would hide a kernel fault, so a row the kernels
+cannot recover fails. On the CPU it is the JAX engine's (retry -> strict
+-> gather -> FP32). Each recovery is counted in
+``engine_recoveries_total{action}`` and traced as a ``recover:<action>``
+instant. Injected faults (`EngineConfig.faults`) fire reproducibly per
+(step, site, salt); an injected fused-step fault degrades that step to the
+split twin, and nothing else is caught: a kernel wrapper's own error
+propagates out of `step()`. Deadlines (`SamplingParams.deadline_s`), a
+bounded admission queue (`max_queue`, `QueueFullError`), the stall
+watchdog of `run_to_completion` (`stall_patience`), `paranoid` pool checks
+and `defrag()` complete the JAX engine's recovery half.
 """
 
 from __future__ import annotations
@@ -53,6 +74,7 @@ from repro_torch.obs import ObsConfig, Observability
 
 from . import sampling as SM
 from . import speculative as SP
+from .faults import FaultConfig, FaultInjector, StepLaunchFault
 from .kv_pool import PagedKVPool
 from .request import SamplingParams, Sequence, SequenceStatus
 from .scheduler import Scheduler, StepPlan
@@ -64,6 +86,12 @@ LAUNCH_KINDS = ("prefill", "decode", "draft", "verify", "mixed")
 # keys run so far in this process: the counterpart of the JAX engine's jit
 # caches, whose growth it logs as compile events
 _STEP_KEYS: Set[tuple] = set()
+
+
+class QueueFullError(RuntimeError):
+    """Raised by `add_request` when the bounded admission queue
+    (`EngineConfig.max_queue`) is full: explicit backpressure instead of an
+    unbounded waiting deque under overload."""
 
 
 def reset_step_caches() -> None:
@@ -110,6 +138,31 @@ class EngineConfig:
     # finished RequestOutputs retained for exact end-of-run percentiles
     finished_retention: int = 1024
     device: str = "cuda"
+    # -- fault tolerance (serving/faults.py) --------------------------------
+    # deterministic fault injection: seeded chaos behind named sites; the
+    # default (enabled=False) constructs no injector at all
+    faults: FaultConfig = FaultConfig()
+    # numerical health guard: every step also returns a per-row health
+    # scalar (max |final logit| over the row's live positions, reduced on
+    # the device and copied with the step's LAMP counts); the guard
+    # quarantines non-finite rows and retries them through the recovery
+    # ladder (retry_ladder: retry -> strict rule, and on the CPU or the
+    # gather path also the plain-version rungs, bounded by max_retries)
+    # before failing the request alone. health_max_abs > 0
+    # additionally treats |logit| above it as unhealthy (0 = finite-only)
+    health_guard: bool = True
+    health_max_abs: float = 0.0
+    max_retries: int = 4
+    # bounded admission queue: add_request raises QueueFullError once this
+    # many requests are waiting (0 = unbounded)
+    max_queue: int = 0
+    # stall watchdog: consecutive no-progress steps run_to_completion
+    # tolerates before attempting recovery (evict the stalled rows,
+    # continue) and, only if recovery changes nothing, raising
+    stall_patience: int = 64
+    # paranoid mode: run pool.check_invariants() against every live
+    # sequence after every step (recovery paths always check)
+    paranoid: bool = False
 
 
 @dataclasses.dataclass
@@ -129,6 +182,9 @@ class RequestOutput:
     spec_accepted: int = 0          # drafted tokens the verifier accepted
     lamp_layer_selected: Optional[List[float]] = None
     lamp_layer_valid: Optional[List[float]] = None
+    # set only on individually-failed requests (finish_reason "timeout" /
+    # "unhealthy" / "stalled"): the diagnostic the engine failed them with
+    error: Optional[str] = None
 
     @property
     def lamp_recompute_rate(self) -> float:
@@ -145,6 +201,35 @@ def _bucket(n: int, cap: int) -> int:
     while b < n:
         b *= 2
     return min(b, cap) if cap else b
+
+
+def retry_ladder(cfg, econfig: EngineConfig, on_card: bool) -> List[tuple]:
+    """(action, cfg, use_lamp, kernel) escalation rungs for retrying a
+    quarantined row, cheapest first: (0) plain re-run of the step's own
+    configuration -- sampling is keyed on (seed, tokens generated), not on
+    batch shape; (1) the strict LAMP rule; (2) the gather path, the plain
+    PyTorch versions instead of the kernels; (3) FP32 reference, no LAMP,
+    on the gather path. Bounded by EngineConfig.max_retries.
+
+    Rungs (2) and (3) run the plain versions in place of the kernels. With
+    the "cuda" path on a card that would hide a kernel fault behind a
+    recovered request, so there the ladder ends after the strict rung: a
+    row the kernels cannot give healthy logits fails alone. On the CPU
+    (where the "cuda" path is the plain versions anyway) the ladder is the
+    JAX "pallas" path's; the "gather" path's is JAX "gather"'s."""
+    kq = cfg.lamp.kq
+    ladder = [("retry", cfg, econfig.use_lamp, econfig.kernel)]
+    if econfig.use_lamp and kq.enabled and kq.rule != "strict":
+        strict = cfg.replace(
+            lamp=cfg.lamp.replace(kq=kq.replace(rule="strict")))
+        ladder.append(("strict", strict, True, econfig.kernel))
+    if econfig.kernel != "gather":
+        if on_card:
+            return ladder[:max(1, econfig.max_retries)]
+        _, pcfg, plamp, _ = ladder[-1]
+        ladder.append(("gather", pcfg, plamp, "gather"))
+    ladder.append(("fp32", cfg, False, "gather"))
+    return ladder[:max(1, econfig.max_retries)]
 
 
 class LampEngine:
@@ -281,14 +366,18 @@ class LampEngine:
         self._h_ttft = reg.histogram(
             "engine_request_ttft_seconds",
             help="request arrival -> first token", unit="s")
-        # registered with the JAX engine's names; they stay 0 until the port
-        # has the recovery ladder and the admission bound
-        reg.counter("engine_recoveries_total",
-                    help="recovery actions absorbed without failing the "
-                         "engine", labels=("action",))
-        reg.counter("engine_requests_failed_total",
-                    help="requests individually failed (engine kept "
-                         "serving)", labels=("reason",))
+        # -- fault tolerance: recovery actions by kind, failed requests by
+        # cause (the fault-injection counter itself lives in FaultInjector);
+        # stats() and the watchdog read these families
+        self._c_recover_fam = reg.counter(
+            "engine_recoveries_total",
+            help="recovery actions absorbed without failing the engine "
+                 "(retry rungs, alloc deferrals, split fallbacks, stall "
+                 "evictions)", labels=("action",))
+        self._c_failed_fam = reg.counter(
+            "engine_requests_failed_total",
+            help="requests individually failed (engine kept serving)",
+            labels=("reason",))
         # per-layer accumulators mirrored into the counters above (numpy, so
         # the per-step update is one vector add), and a bounded time series
         # of each step's per-layer recompute rates
@@ -299,6 +388,17 @@ class LampEngine:
         # memory (the static site tau; a later slice's policy moves them)
         self.taus = torch.full((L,), float(cfg.lamp.kq.tau),
                                dtype=torch.float32, device=self.device)
+
+        # -- fault tolerance: the deterministic injector (None when
+        # disabled), the rows the health guard pulled out of this step, and
+        # the failures to merge into step()'s output
+        self.faults: Optional[FaultInjector] = (
+            FaultInjector(econfig.faults, self.obs)
+            if econfig.faults.enabled else None)
+        self._quarantine: List[tuple] = []
+        self._step_failures: List[RequestOutput] = []
+        self._last_alloc_degrades = 0
+        self._has_deadlines = False
 
     # -- counter attributes: views over the metrics registry ----------------
 
@@ -380,6 +480,17 @@ class LampEngine:
     def compile_events(self):
         return self.obs.compile_events
 
+    @property
+    def recoveries(self) -> int:
+        """Recovery actions absorbed, all kinds."""
+        return int(sum(c.value for _, c in self._c_recover_fam.items()))
+
+    @property
+    def failed_requests(self) -> int:
+        """Requests failed alone (admission rejections are not requests)."""
+        return int(sum(c.value for (reason,), c in self._c_failed_fam.items()
+                       if reason != "queue_full"))
+
     # -- request intake -----------------------------------------------------
 
     def add_request(self, prompt: List[int],
@@ -397,11 +508,22 @@ class LampEngine:
                 f"{self.max_model_len}")
         if not all(0 <= int(t) < self.cfg.vocab for t in prompt):
             raise ValueError(f"prompt token outside [0, {self.cfg.vocab})")
+        if self.econfig.max_queue and \
+                len(self.scheduler.waiting) >= self.econfig.max_queue:
+            self._c_failed_fam.labels("queue_full").inc()
+            if self.obs.tracer.enabled:
+                self.obs.tracer.instant("reject", cat="fault",
+                                        reason="queue_full")
+            raise QueueFullError(
+                f"admission queue full ({self.econfig.max_queue} waiting); "
+                f"retry later or raise EngineConfig.max_queue")
         req_id = self._next_id
         self._next_id += 1
         seq = Sequence(req_id, prompt, sampling,
                        arrival_time if arrival_time is not None
                        else self._now())
+        if sampling.deadline_s > 0:
+            self._has_deadlines = True
         self._seqs[req_id] = seq
         self.scheduler.add(seq)
         return req_id
@@ -413,17 +535,46 @@ class LampEngine:
 
     @torch.no_grad()
     def step(self) -> List[RequestOutput]:
-        """Run one engine step; returns the requests it finished."""
+        """Run one engine step; returns requests finished by this step
+        (successfully or -- with `RequestOutput.error` set -- failed)."""
         if self._start is None:
             self._start = self._now()
+        step_id = self.total_steps
+        inj = self.faults
+        if inj is not None and inj.maybe_stall(step_id):
+            # injected stall: the step schedules nothing, so the
+            # run_to_completion watchdog sees no progress (the stall's
+            # stall_s latency feeds only the policy loop, not ported yet)
+            return self._drain_failures()
+        if self._has_deadlines:
+            self._expire_deadlines()
+        if inj is not None and inj.fires(step_id, "alloc"):
+            self.pool.arm_alloc_failure(1)
+            inj.record(step_id, "alloc")
         with self.obs.span("schedule"):
             plan = self.scheduler.schedule()
+        d_alloc = (self.scheduler.alloc_fault_degrades
+                   - self._last_alloc_degrades)
+        if d_alloc:
+            self._last_alloc_degrades = self.scheduler.alloc_fault_degrades
+            self._recover("alloc_defer", n=d_alloc)
         if plan is None:
-            return []
+            return self._drain_failures()
         if self.econfig.mixed_exec == "split":
             self._step_mixed_split(plan)
         else:
-            self._step_mixed(plan)
+            try:
+                if inj is not None and inj.fires(step_id, "step"):
+                    inj.record(step_id, "step")
+                    raise StepLaunchFault("injected fused-step launch failure")
+                self._step_mixed(plan)
+            except StepLaunchFault:
+                # degrade this step to the split twin: same plan, same
+                # tokens. Only the injected type is caught (it is raised
+                # before any launch, so nothing has moved); a kernel's own
+                # error stays loud rather than re-run a half-applied step
+                self._recover("split_fallback")
+                self._step_mixed_split(plan)
         self._c_mixed_steps.inc()
         roles = plan.roles or []
         if any(r == "prefill" for r in roles):
@@ -432,10 +583,21 @@ class LampEngine:
             self._c_mixed_decode.inc()
         if self._spec_round(plan.draft_lens):
             self._c_mixed_verify.inc()
+        if self._quarantine:
+            # rows the health guard pulled out of the step: retry each
+            # through the recovery ladder (or fail it alone), then prove the
+            # pool survived the surgery
+            with self.obs.span("recover", rows=len(self._quarantine)):
+                self._drain_quarantine()
+            self.pool.check_invariants(self._seqs.values())
         self._util_sum += self.pool.utilization
         self._util_n += 1
         with self.obs.span("emit"):
-            return self._collect_finished(plan.seqs)
+            done = self._collect_finished(plan.seqs)
+        done.extend(self._drain_failures())
+        if self.econfig.paranoid:
+            self.pool.check_invariants(self._seqs.values())
+        return done
 
     def _batch_arrays(self, seqs: List[Sequence], Bb: int):
         bt = np.zeros((Bb, self.blocks_per_seq), np.int32)
@@ -453,6 +615,22 @@ class LampEngine:
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _to_host(self, nsel: torch.Tensor, nval: torch.Tensor,
+                 health: Optional[torch.Tensor]):
+        """A step's per-layer (L, Bb) LAMP counts and, under the guard, its
+        (Bb,) health in one device-to-host copy (inside the caller's sync
+        span). Returns numpy (nsel, nval, health or None)."""
+        L = nsel.shape[0]
+        parts = [nsel, nval] if health is None else [nsel, nval, health[None]]
+        host = torch.cat(parts).cpu().numpy()
+        return host[:L], host[L:2 * L], \
+            None if health is None else host[2 * L]
+
+    def _last_health(self, last: torch.Tensor) -> Optional[torch.Tensor]:
+        """Per-row max |logit| of (Bb, V) final logits, on the device (NaN
+        and Inf propagate); None with the guard off."""
+        return last.abs().amax(dim=-1) if self.econfig.health_guard else None
 
     def _spec_round(self, draft_lens) -> bool:
         return self.spec_config is not None and any(draft_lens)
@@ -554,6 +732,218 @@ class LampEngine:
         assert len(seq.block_ids) * self.pool.block_size >= seq.cache_len, \
             "rollback dropped a verified tail block"
 
+    # -- fault tolerance ----------------------------------------------------
+
+    def _recover(self, action: str, n: int = 1, **detail) -> None:
+        """Account one absorbed recovery action (metric + trace instant)."""
+        self._c_recover_fam.labels(action).inc(n)
+        if self.obs.tracer.enabled:
+            self.obs.tracer.instant(f"recover:{action}", cat="fault",
+                                    **detail)
+
+    def _unhealthy(self, h: float) -> bool:
+        h = float(h)
+        if not np.isfinite(h):
+            return True
+        cap = self.econfig.health_max_abs
+        return cap > 0 and h > cap
+
+    def _quarantine_row(self, seq: Sequence, prefill: bool,
+                        window: int) -> None:
+        """Pull an unhealthy row out of this step: its bookkeeping is
+        skipped and its window queued for the recovery ladder. A decode or
+        verify row drops this round's speculative span, keeping the slot at
+        cache_len that its width-1 retry writes, and retries as a plain
+        decode."""
+        if prefill:
+            self._quarantine.append((seq, "prefill", window))
+            return
+        seq.block_ids = self.pool.rollback(seq.block_ids, seq.cache_len + 1)
+        # the kept tail is the row's own decode-write block, private and
+        # unregistered (check_invariants), so rollback never drops it
+        assert len(seq.block_ids) * self.pool.block_size > seq.cache_len, \
+            "rollback dropped a decode-write tail block"
+        self._quarantine.append((seq, "decode", 1))
+
+    def _inject_nan(self, seqs: List[Sequence], health: Optional[np.ndarray],
+                    spans: List[tuple]) -> Optional[np.ndarray]:
+        """Fault site "nan": poison one deterministic victim row -- its
+        health value goes NaN and the arena KV positions it wrote this step
+        (`spans[row]` = (start, width), exactly what its recovery retry
+        rewrites) are overwritten with NaN. With the guard off (health
+        None), the corruption propagates like a real kernel fault would."""
+        inj = self.faults
+        step_id = self.total_steps
+        if inj is None or not inj.fires(step_id, "nan"):
+            return health
+        row = inj.pick_row(step_id, "nan", [s.req_id for s in seqs])
+        if row is None:
+            return health
+        seq = seqs[row]
+        start, width = spans[row]
+        bs = self.pool.block_size
+        pos = [p for p in range(start, start + width)
+               if p // bs < len(seq.block_ids)]
+        if pos:
+            blocks = torch.tensor([seq.block_ids[p // bs] for p in pos],
+                                  device=self.device)
+            offs = torch.tensor([p % bs for p in pos], device=self.device)
+            self.pool.k[:, blocks, offs] = float("nan")
+            self.pool.v[:, blocks, offs] = float("nan")
+        if health is not None:
+            health = np.array(health, np.float64)
+            health[row] = np.nan
+        inj.record(step_id, "nan", req=seq.req_id, start=start, width=width)
+        return health
+
+    def _inject_draft(self, dseqs: List[Sequence], kd, d_toks: torch.Tensor,
+                      vocab: int) -> torch.Tensor:
+        """Fault site "draft": corrupt one drafting row's proposals (each
+        token bumped mod vocab, on the device). No dedicated recovery: the
+        verify pass is the recovery -- a greedy verifier rejects them."""
+        inj = self.faults
+        step_id = self.total_steps
+        if inj is None or not inj.fires(step_id, "draft"):
+            return d_toks
+        rows = [j for j in range(len(dseqs)) if int(kd[j]) > 0]
+        if not rows:
+            return d_toks
+        j = rows[inj.pick_row(step_id, "draft",
+                              [dseqs[r].req_id for r in rows])]
+        d_toks[j] = (d_toks[j] + 1) % vocab
+        inj.record(step_id, "draft", req=dseqs[j].req_id)
+        return d_toks
+
+    def _retry_ladder(self) -> List[tuple]:
+        return retry_ladder(self.cfg, self.econfig,
+                            self.device.type == "cuda")
+
+    def _retry_row(self, seq: Sequence, kind: str, window: int,
+                   rcfg, rlamp: bool, rkernel: str) -> bool:
+        """Re-run one quarantined row's window as a one-row
+        `paged_mixed_step` (a decode is a width-1 window) under a ladder
+        rung's configuration; its launch counts under "prefill", as the
+        JAX engine's does. Healthy result: apply the bookkeeping the
+        quarantine skipped and return True; still unhealthy: leave the
+        sequence untouched for the next rung."""
+        tokens = np.zeros((1, _bucket(window, 0)), np.int32)
+        if kind == "prefill":
+            start = seq.prefill_cursor
+            tokens[0, :window] = seq.prefill_tokens()[start:start + window]
+        else:
+            start = seq.cache_len
+            tokens[0, 0] = seq.last_token
+        bt, seeds, counts, temps, topks = self._batch_arrays([seq], 1)
+        with self.obs.span("retry", req=seq.req_id, kind=kind,
+                           window=window):
+            logits, _, (nsel, nval) = transformer.paged_mixed_step(
+                rcfg, self.params, self._dev(tokens),
+                {"k": self.pool.k, "v": self.pool.v}, self._dev(bt),
+                self._dev(np.asarray([start], np.int32)),
+                self._dev(np.asarray([window], np.int32)), use_lamp=rlamp,
+                kernel=rkernel, per_layer=True, taus=self.taus)
+            last = logits[:, -1]
+            nxt = SM.sample_rows(last, seeds, counts, temps,
+                                 topks if topks.any() else None).cpu().numpy()
+            nsel, nval, health = self._to_host(nsel, nval,
+                                               last.abs().amax(dim=-1))
+        self._c_launches["prefill"].inc()
+        if self._unhealthy(health[0]):
+            return False
+        now = self._now()
+        self._account_lamp([seq], nsel, nval)
+        if kind == "prefill":
+            self._after_prefill(seq, window, int(nxt[0]), now)
+        else:
+            self._after_decode(seq, int(nxt[0]), now)
+        return True
+
+    def _drain_quarantine(self) -> None:
+        """Walk every row the health guard quarantined this step through
+        the recovery ladder; a row no rung can produce healthy logits for
+        fails alone (diagnostic RequestOutput.error), never the engine."""
+        q, self._quarantine = self._quarantine, []
+        ladder = self._retry_ladder()
+        for seq, kind, window in q:
+            for action, rcfg, rlamp, rkernel in ladder:
+                if self._retry_row(seq, kind, window, rcfg, rlamp, rkernel):
+                    self._recover(action, req=seq.req_id)
+                    break
+            else:
+                self._fail_seq(
+                    seq, "unhealthy",
+                    f"non-finite or out-of-range logits persisted through "
+                    f"{len(ladder)} recovery rung(s) "
+                    f"[{'/'.join(a for a, *_ in ladder)}] at {kind} "
+                    f"window={window} cache_len={seq.cache_len}")
+
+    def _fail_seq(self, seq: Sequence, reason: str, error: str) -> None:
+        """Terminal per-request failure: cancel it wherever it sits, free
+        its blocks, and emit a diagnostic RequestOutput. The engine --
+        and every other request -- keeps serving."""
+        seq.finish(reason, self._now())
+        self.scheduler.cancel(seq)
+        self._c_failed_fam.labels(reason).inc()
+        if self.obs.tracer.enabled:
+            self.obs.tracer.instant("request_failed", cat="fault",
+                                    req=seq.req_id, reason=reason)
+        out = RequestOutput(
+            req_id=seq.req_id, prompt=seq.prompt, tokens=seq.generated,
+            finish_reason=reason, latency=seq.latency() or 0.0,
+            ttft=seq.ttft() or 0.0, num_preemptions=seq.num_preemptions,
+            lamp_selected=seq.lamp.selected, lamp_valid=seq.lamp.valid,
+            num_cached_tokens=seq.num_cached_tokens,
+            num_resume_cached_tokens=seq.num_resume_cached_tokens,
+            spec_drafted=seq.spec_drafted, spec_accepted=seq.spec_accepted,
+            error=error)
+        self._finished.append(out)
+        self._seqs.pop(seq.req_id, None)
+        self._step_failures.append(out)
+
+    def _drain_failures(self) -> List[RequestOutput]:
+        out, self._step_failures = self._step_failures, []
+        return out
+
+    def _expire_deadlines(self) -> None:
+        """Cancel requests whose wall-clock TTL elapsed (blocks released,
+        finish_reason "timeout"); runs before scheduling so an expired
+        request never costs another step of compute."""
+        now = self._now()
+        for seq in [s for s in self._seqs.values()
+                    if s.sampling.deadline_s > 0 and not s.is_finished
+                    and now - s.arrival_time > s.sampling.deadline_s]:
+            self._fail_seq(
+                seq, "timeout",
+                f"deadline_s={seq.sampling.deadline_s} exceeded after "
+                f"{now - seq.arrival_time:.3f}s "
+                f"({seq.num_generated} tokens generated)")
+
+    def _stall_recover(self) -> bool:
+        """The watchdog's recovery attempt after `stall_patience` steps
+        without progress. Cheapest plausible fix first: clear an injected
+        stall; else evict every running row (recompute-style, so resumed
+        token streams are identical); else fail the oldest waiting request.
+        Returns False when nothing changed -- the caller then raises."""
+        if self.faults is not None and self.faults.stalled:
+            self.faults.clear_stall()
+            self._recover("stall_clear")
+            return True
+        acted = False
+        evicted = 0
+        while self.scheduler._preempt_youngest():
+            evicted += 1
+        if evicted:
+            self._recover("stall_evict", n=evicted)
+            acted = True
+        elif self.scheduler.waiting:
+            self._fail_seq(
+                self.scheduler.waiting[0], "stalled",
+                f"no step progress for {self.econfig.stall_patience} "
+                f"steps with the request still queued")
+            acted = True
+        self.pool.check_invariants(self._seqs.values())
+        return acted
+
     # -- the fused step -----------------------------------------------------
 
     def _decode_bucket(self, seqs: List[Sequence], kd: List[int]):
@@ -629,6 +1019,7 @@ class LampEngine:
             if first_draft:
                 self.obs.record_compile("draft", (len(dbucket[0]),),
                                         spd.elapsed, self.total_steps)
+            d_toks = self._inject_draft(dseqs, kd, d_toks, d_logits.shape[-1])
         first = self._first_run("mixed_spec" if spec_round else "window",
                                 (Bb, Wb), topks)
         with self.obs.span("mixed", rows=len(seqs), bucket=[Bb, Wb],
@@ -644,31 +1035,46 @@ class LampEngine:
                 use_lamp=self.econfig.use_lamp, kernel=self.econfig.kernel,
                 per_layer=True, taus=self.taus, all_logits=spec_round)
             if spec_round:
+                qlens_t = self._dev(qlens)
                 last = logits[torch.arange(Bb, device=self.device),
-                              self._dev(qlens).long() - 1]
+                              qlens_t.long() - 1]
                 # accept only over the verify rows: the rule is row-wise
                 emit, n_acc = SP.speculative_accept(
                     logits[rows, :k + 1], d_toks[:len(dec_rows)],
                     d_logits[:len(dec_rows)], kd, seeds[dec_rows],
                     counts[dec_rows], temps[dec_rows],
                     None if top is None else top[dec_rows])
+                # over each row's live positions only: the CUDA kernel
+                # writes zeros past qlens[b], the plain version values
+                health = (SP.live_max_abs(logits, qlens_t)
+                          if self.econfig.health_guard else None)
             else:
                 last = logits[:, -1]
+                health = self._last_health(last)
             nxt = SM.sample_rows(last, seeds, counts, temps, top)
         self._c_launches["mixed"].inc()
         with self.obs.span("sync"):
             if spec_round:
                 emit, n_acc = emit.cpu().numpy(), n_acc.cpu().numpy()
             nxt = nxt.cpu().numpy()
-            nsel, nval = nsel.cpu().numpy(), nval.cpu().numpy()
+            nsel, nval, health = self._to_host(nsel, nval, health)
         if first:
             self.obs.record_compile("mixed", (Bb, Wb), sp.elapsed,
                                     self.total_steps)
+        # decode / verify rows poison width 1 (what their width-1 retry
+        # rewrites -- see _step_spec); prefill rows poison their window
+        health = self._inject_nan(
+            seqs, health,
+            [(s.prefill_cursor, windows[i]) if roles[i] == "prefill"
+             else (s.cache_len, 1) for i, s in enumerate(seqs)])
         now = self._now()
         self._account_lamp(seqs, nsel, nval,
                            verify_cols=dec_rows if spec_round else None)
         verify_row = {i: j for j, i in enumerate(dec_rows)}
         for i, seq in enumerate(seqs):
+            if health is not None and self._unhealthy(health[i]):
+                self._quarantine_row(seq, roles[i] == "prefill", windows[i])
+                continue
             if roles[i] == "prefill":
                 self._after_prefill(seq, windows[i], int(nxt[i]), now)
             elif spec_round:
@@ -721,16 +1127,23 @@ class LampEngine:
                 per_layer=True, taus=self.taus)
             nxt = SM.sample_rows(logits[:, -1], seeds, counts, temps,
                                  topks if topks.any() else None)
+            health = self._last_health(logits[:, -1])
         self._c_launches["prefill"].inc()
         with self.obs.span("sync"):
             nxt = nxt.cpu().numpy()
-            nsel, nval = nsel.cpu().numpy(), nval.cpu().numpy()
+            nsel, nval, health = self._to_host(nsel, nval, health)
         if first:
             self.obs.record_compile("prefill", (Bb, Wb), sp.elapsed,
                                     self.total_steps)
+        health = self._inject_nan(
+            seqs, health,
+            [(s.prefill_cursor, w) for s, w in zip(seqs, windows)])
         now = self._now()
         self._account_lamp(seqs, nsel, nval)
         for i, (seq, w) in enumerate(zip(seqs, windows)):
+            if health is not None and self._unhealthy(health[i]):
+                self._quarantine_row(seq, True, w)
+                continue
             self._after_prefill(seq, w, int(nxt[i]), now)
 
     def _step_decode(self, seqs: List[Sequence]) -> None:
@@ -748,16 +1161,22 @@ class LampEngine:
                 per_layer=True, taus=self.taus)
             nxt = SM.sample_rows(logits[:, -1], seeds, counts, temps,
                                  topks if topks.any() else None)
+            health = self._last_health(logits[:, -1])
         self._c_launches["decode"].inc()
         with self.obs.span("sync"):
             nxt = nxt.cpu().numpy()
-            nsel, nval = nsel.cpu().numpy(), nval.cpu().numpy()
+            nsel, nval, health = self._to_host(nsel, nval, health)
         if first:
             self.obs.record_compile("decode", (Rb,), sp.elapsed,
                                     self.total_steps)
+        health = self._inject_nan(seqs, health,
+                                  [(s.cache_len, 1) for s in seqs])
         now = self._now()
         self._account_lamp(seqs, nsel, nval)
         for i, seq in enumerate(seqs):
+            if health is not None and self._unhealthy(health[i]):
+                self._quarantine_row(seq, False, 1)
+                continue
             self._after_decode(seq, int(nxt[i]), now)
 
     def _step_spec(self, seqs: List[Sequence], draft_lens: List[int]) -> None:
@@ -772,27 +1191,38 @@ class LampEngine:
         first_d = self._first_run("draft", (Rb,), topks)
         first_v = self._first_run("verify", (Rb,), topks)
         (d_toks, d_logits), spd = self._draft(bucket, len(seqs))
+        d_toks = self._inject_draft(seqs, kd, d_toks, d_logits.shape[-1])
         with self.obs.span("verify", rows=len(seqs), bucket=[Rb]) as spv:
-            emit, n_acc, nsel, nval = SP.verify(
+            emit, n_acc, health, nsel, nval = SP.verify(
                 self.cfg, self.params, {"k": self.pool.k, "v": self.pool.v},
                 self._dev(bt), self._dev(lengths), self._dev(tok0), d_toks,
                 d_logits, kd, self.spec_config, use_lamp=self.econfig.use_lamp,
                 kernel=self.econfig.kernel, taus=self.taus, seeds=seeds,
                 counts=counts, temps=temps,
                 top_k=topks if topks.any() else None)
+            if not self.econfig.health_guard:
+                health = None
         self._c_launches["verify"].inc()
         with self.obs.span("sync"):
             emit, n_acc = emit.cpu().numpy(), n_acc.cpu().numpy()
-            nsel, nval = nsel.cpu().numpy(), nval.cpu().numpy()
+            nsel, nval, health = self._to_host(nsel, nval, health)
         if first_d:
             self.obs.record_compile("draft", (Rb,), spd.elapsed,
                                     self.total_steps)
         if first_v:
             self.obs.record_compile("verify", (Rb,), spv.elapsed,
                                     self.total_steps)
+        # poison width 1 even for drafted rows: the quarantine retries a
+        # verify row as a plain decode, which rewrites only position
+        # cache_len -- poison past it would outlive the recovery
+        health = self._inject_nan(seqs, health,
+                                  [(s.cache_len, 1) for s in seqs])
         now = self._now()
         self._account_lamp(seqs, nsel, nval, verify=True)
         for i, seq in enumerate(seqs):
+            if health is not None and self._unhealthy(health[i]):
+                self._quarantine_row(seq, False, 1)
+                continue
             self._after_verify(seq, draft_lens[i], int(n_acc[i]), emit[i], now)
 
     def _collect_finished(self, seqs: List[Sequence]) -> List[RequestOutput]:
@@ -828,7 +1258,14 @@ class LampEngine:
             done.append(out)
         return done
 
-    # -- metrics ------------------------------------------------------------
+    # -- maintenance / metrics ----------------------------------------------
+
+    def defrag(self) -> None:
+        """Compact the live sequences' blocks to the lowest arena rows,
+        oldest sequence first (``PagedKVPool.defrag``)."""
+        with self.obs.span("defrag"):
+            self.pool.defrag(sorted(self.scheduler.running,
+                                    key=lambda s: s.arrival_time))
 
     @property
     def num_preemptions(self) -> int:
@@ -935,13 +1372,15 @@ class LampEngine:
             "verify_recompute_rate": (self.spec_verify_selected
                                       / self.spec_verify_valid
                                       if self.spec_verify_valid else 0.0),
-            # the JAX engine's policy, audit and fault-tolerance keys: this
-            # engine has none of those parts yet
+            # the JAX engine's policy and audit keys: this engine has
+            # neither part yet
             "policy": {"enabled": False},
             "audit": {"enabled": False},
-            "recoveries": 0,
-            "failed_requests": 0,
-            "faults": {"enabled": False},
+            # fault tolerance (serving/faults.py + the recovery ladder)
+            "recoveries": self.recoveries,
+            "failed_requests": self.failed_requests,
+            "faults": (self.faults.stats() if self.faults is not None
+                       else {"enabled": False}),
         }
 
     def write_trace(self, path: Optional[str] = None) -> str:
@@ -976,12 +1415,31 @@ class LampEngine:
     def run_to_completion(self, max_steps: int = 100000) -> List[RequestOutput]:
         """Drive step() until every queued request finishes; raises when
         `max_steps` elapse with requests still live, with a diagnostic
-        snapshot (registry scalars, live sequences, trace tail)."""
+        snapshot (registry scalars, live sequences, trace tail).
+
+        A stall watchdog runs first: after `EngineConfig.stall_patience`
+        consecutive steps with zero progress (no tokens, no prefill, no
+        finishes, no failures) it attempts `_stall_recover()` -- clearing
+        an injected stall, evicting wedged rows, or failing the oldest
+        queued request -- and only raises when recovery changes nothing."""
         out: List[RequestOutput] = []
+        idle = 0
+        last = None
         for _ in range(max_steps):
             if not self.has_unfinished():
                 return out
             out.extend(self.step())
+            prog = (self.generated_tokens, self.prefill_tokens_run,
+                    int(self._c_finished.value), self.failed_requests)
+            if prog == last:
+                idle += 1
+                if idle >= self.econfig.stall_patience:
+                    if not self._stall_recover():
+                        break
+                    idle = 0
+            else:
+                idle = 0
+                last = prog
         raise RuntimeError(
             f"run_to_completion exceeded max_steps={max_steps} with "
             f"{self.stats()['live_requests']} request(s) still live "

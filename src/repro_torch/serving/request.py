@@ -1,6 +1,6 @@
 """Request/Sequence lifecycle objects for the continuous-batching engine
-(a copy of ``repro/serving/request.py`` without the fields of the parts not
-ported yet: shadow audit, deadlines).
+(a copy of ``repro/serving/request.py`` without the fields of the part not
+ported yet: the shadow audit).
 
 A `Sequence` tracks one request through
     WAITING -> PREFILL -> DECODE -> FINISHED
@@ -36,6 +36,9 @@ class SamplingParams:
     top_k: int = 0                  # 0 = unfiltered; else sample from the
                                     # top-k logits only (also the filter the
                                     # speculative accept rule scores against)
+    deadline_s: float = 0.0         # wall-clock TTL from arrival; 0 = none.
+                                    # An expired request is cancelled with
+                                    # finish_reason="timeout", blocks freed
 
 
 @dataclasses.dataclass

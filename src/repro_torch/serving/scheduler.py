@@ -388,3 +388,19 @@ class Scheduler:
         self.running.remove(seq)
         self.pool.free_blocks(reversed(seq.block_ids))
         seq.block_ids = []
+
+    def cancel(self, seq: Sequence) -> None:
+        """Remove a sequence from wherever it sits (waiting queue or running
+        set) and release its blocks: deadline expiry, health-guard failure,
+        and stall eviction all route through here. Idempotent-safe against
+        the queue/running split; freeing mirrors `finish` (tail-first)."""
+        if seq in self.running:
+            self.running.remove(seq)
+        else:
+            try:
+                self.waiting.remove(seq)
+            except ValueError:
+                pass
+        if seq.block_ids:
+            self.pool.free_blocks(reversed(seq.block_ids))
+            seq.block_ids = []

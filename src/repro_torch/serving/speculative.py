@@ -131,6 +131,16 @@ def speculative_accept(verify_logits: torch.Tensor, draft_tokens: torch.Tensor,
     return emit, n_acc
 
 
+def live_max_abs(logits: torch.Tensor, qlens: torch.Tensor) -> torch.Tensor:
+    """Per-row max |logit| over each row's live window positions, (B, W, V)
+    -> (B,), on the device: the engine's health scalar for a window step.
+    NaN and Inf propagate; positions past qlens[b] (the CUDA kernel writes
+    zeros there, the plain version values) do not count."""
+    live = torch.arange(logits.shape[1], device=logits.device)[None, :] \
+        < qlens[:, None]
+    return torch.where(live, logits.abs().amax(dim=-1), 0.0).amax(dim=-1)
+
+
 def draft(cfg, params, arena, block_tables: torch.Tensor,
           lengths: torch.Tensor, tok0: torch.Tensor, kd: Sequence[int],
           spec: SpecConfig, *, use_lamp: bool, seeds, counts, temps,
@@ -171,8 +181,9 @@ def verify(cfg, params, arena, block_tables: torch.Tensor,
            kernel: str = "cuda"):
     """One window [tok0, d_1..d_k], padded to `verify_width`, at positions
     lengths .. lengths + kd with the engine's LAMP rule (rewriting their
-    K/V), then `speculative_accept`. Returns (emit, n_accepted, n_selected
-    (L, R), n_valid (L, R))."""
+    K/V), then `speculative_accept`. Returns (emit, n_accepted, health (R,)
+    -- `live_max_abs` over the verify span --, n_selected (L, R), n_valid
+    (L, R))."""
     k = spec.draft_len
     R = tok0.shape[0]
     win = torch.zeros((R, spec.verify_width), dtype=torch.int32,
@@ -186,4 +197,4 @@ def verify(cfg, params, arena, block_tables: torch.Tensor,
         use_lamp=use_lamp, kernel=kernel, per_layer=True, taus=taus)
     emit, n_acc = speculative_accept(logits, draft_tokens, draft_logits, kd,
                                      seeds, counts, temps, top_k)
-    return emit, n_acc, nsel, nval
+    return emit, n_acc, live_max_abs(logits, qlens), nsel, nval

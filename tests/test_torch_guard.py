@@ -1,8 +1,8 @@
 """Rules of the port that no differential test shows: it imports nothing of
-JAX or of the JAX package (its observability package included), its engine
-never falls back from CUDA to the CPU, and CPU tensors never launch a
-kernel; and the serve CLI runs on the CPU, writing its trace and metrics
-files."""
+JAX or of the JAX package (its observability package and fault injector
+included), its engine never falls back from CUDA to the CPU, and CPU
+tensors never launch a kernel; and the serve CLI runs on the CPU, writing
+its trace and metrics files."""
 
 import json
 import os
@@ -28,7 +28,8 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 micro = {"repro_torch.kernels." + m for m in
          ("flash_decode", "lamp_attention", "ps_matmul", "rmsnorm")}
 assert micro | {"repro_torch.launch.kernels_micro"} <= set(names), names
-obs = {"repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.tracing"}
+obs = {"repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.tracing",
+       "repro_torch.obs.audit", "repro_torch.serving.faults"}
 assert obs <= set(names), names
 for name in names:
     importlib.import_module(name)
