@@ -95,6 +95,30 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            cleared by the watchdog; max_queue 2 rejects the third request;
            defrag() every 5 steps; the guard on and off alternated twice
            (tokens gated, tokens/s and the mixed / sync means printed)
+  kv_dtype the arena in bfloat16 (EngineConfig.kv_dtype): GPT-2 small's
+           stream spec off and on, and glm4-9b-2l (bfloat16 weights,
+           relaxed, g 0), every kernel call held to the plain version on
+           the same bfloat16 arena (Shadow) and both kernels launched;
+           arena bytes and max_memory_allocated of the stream at float32
+           and bfloat16, alternated twice (the bytes must halve); both
+           kernels at every bucket of phases engine and spec on float32
+           and bfloat16 arenas, alternated in turns, the bfloat16 call held
+           to its plain version; float16 once a kernel at its most common
+           bucket, and bfloat16 with y_low recomputed in pass 2
+           (YLOW_KEEP_MAX_BYTES 0), against the plain version
+  sampled  threefry on the card: row uniforms at 8 rows x 50257 for each
+           salt bit-equal to the CPU's, each of the Gumbel noise's two logs
+           within 2 ulp of the CPU's and the noise within the bound that
+           carries the inner log's 2 ulp through the outer; the noise's
+           time for one sampled step; GPT-2 small's stream sampled
+           (temperature 0.8, top-k 50), spec off and on, each run twice
+           with identical tokens
+  policy   the adaptive policy loop (target rate 0.002, so tau moves) on
+           GPT-2 small's stream, then in a 41-block pool that preempts, so
+           SHED drops the rule tier strict -> relaxed: every kernel call
+           held to the plain version with the layer's live tau (Shadow),
+           the relaxed rule served by the kernel, tau moved, every request
+           finished
 
 The loud rule holds for every engine run of every phase but the ladder
 exhaustion run: no recovery through the gather or FP32 rung (they run the
@@ -545,9 +569,9 @@ def make_engine(params, cfg, requests=True, **options):
     """The engine of every run (phase engine's settings), with its 8 greedy
     requests added unless `requests` is False."""
     from repro_torch.serving import EngineConfig, LampEngine, SamplingParams
-    eng = LampEngine(cfg, params, EngineConfig(
-        block_size=BS, max_model_len=320, n_blocks=8 * 20 + 1,
-        max_prefill_tokens=128, device=DEVICE, **options))
+    settings = dict(block_size=BS, max_model_len=320, n_blocks=8 * 20 + 1,
+                    max_prefill_tokens=128, device=DEVICE)
+    eng = LampEngine(cfg, params, EngineConfig(**{**settings, **options}))
     if requests:
         for i, prompt in enumerate(engine_requests(cfg)):
             eng.add_request(prompt, SamplingParams(max_new_tokens=32, seed=i))
@@ -861,6 +885,7 @@ def bound_at(args, site, out, nsel, window):
     q, ak, av, bt, starts, qlens = args
     B, Hq, W, hd = q.shape
     _, bs, Hkv, _ = ak.shape
+    kv = ak.element_size()                  # the arena's bytes an element
     bt, starts, qlens = bt.cpu(), starts.cpu(), qlens.cpu()
     spans, pairs = [], 0
     for b in range(B):
@@ -872,7 +897,7 @@ def bound_at(args, site, out, nsel, window):
             pairs += pos + 1 if window is None else min(pos + 1, window)
     live_q = int(qlens.sum())
     nbytes = (live_q * Hq * hd * 4 * 2                       # q in, out
-              + live_kv_positions(bt, spans, bs) * Hkv * hd * 4 * 2  # K, V
+              + live_kv_positions(bt, spans, bs) * Hkv * hd * kv * 2  # K, V
               + bt.numel() * 4 + B * 8 + B * W * 4)          # tables, counts
     selected = float(nsel.sum())
     flops = pairs * Hq * 4 * hd + selected * 2 * hd if site.enabled else \
@@ -892,6 +917,7 @@ def decode_bound_at(args, site, nsel, window):
     q, ak, av, bt, lengths = args
     R, Hq, _, hd = q.shape
     _, bs, Hkv, _ = ak.shape
+    kv = ak.element_size()
     bt, lengths = bt.cpu(), lengths.cpu()
     spans, pairs = [], 0
     for r in range(R):
@@ -899,7 +925,7 @@ def decode_bound_at(args, site, nsel, window):
         spans.append((0 if window is None else max(L - window, 0), L - 1))
         pairs += L if window is None else min(L, window)
     nbytes = (R * Hq * hd * 4 * 2                            # q in, out
-              + live_kv_positions(bt, spans, bs) * Hkv * hd * 4 * 2  # K, V
+              + live_kv_positions(bt, spans, bs) * Hkv * hd * kv * 2  # K, V
               + bt.numel() * 4 + R * 4 + R * Hq * 4)         # tables, counts
     flops = pairs * Hq * 4 * hd + (float(nsel.sum()) * 2 * hd
                                    if site.enabled else 0.0)
@@ -1129,6 +1155,7 @@ class Shadow:
     def __init__(self):
         self.calls = self.apart = self.slack_used = 0
         self.max_err = self.max_count_diff = 0.0
+        self.rules = collections.Counter()      # calls by the site's rule
 
     def __enter__(self):
         from repro_torch.kernels import paged_attention as PA
@@ -1140,6 +1167,7 @@ class Shadow:
             ref, nref = PA.paged_mixed_attention_plain(
                 q, ak, av, bt, starts, qlens, site, tau=tau, window=window)
             self.note(compare(out, nsel, ref, nref, qlens, self.slack(site)))
+            self.rules[site.rule if site.enabled else "off"] += 1
             return out, nsel
 
         def decode(q, ak, av, bt, lengths, site, *, tau=None, window=None):
@@ -1148,6 +1176,7 @@ class Shadow:
             ref, nref = PA.paged_decode_attention_plain(
                 q, ak, av, bt, lengths, site, tau=tau, window=window)
             self.note(compare_rows(out, nsel, ref, nref, self.slack(site)))
+            self.rules[site.rule if site.enabled else "off"] += 1
             return out, nsel
 
         PA.paged_mixed_attention, PA.paged_decode_attention = mixed, decode
@@ -1245,6 +1274,7 @@ def phase_gather(params, cfg, gather_arm):
              params_init_s=init_s if c is dcfg else None,
              checks=checks, ok=all(checks.values()))
     require(ok_all, "kernel and gather engine runs disagree")
+    return dcfg, dparams
 
 
 # chaos on the speculative fused run: every site at a rate that fires in
@@ -1387,6 +1417,302 @@ def phase_faults(params, cfg, ref_tokens):
     require(all(checks.values()), f"faults phase failed its checks: {checks}")
 
 
+def shadow_run(params, cfg, **options):
+    """run_engine under `Shadow` with both launch counters set to 0 just
+    before: (engine, outputs, wall, shadow, {"mixed": n, "decode": n})."""
+    from repro_torch.kernels import paged_attention as PA
+    shadow = Shadow()
+    with shadow:
+        PA._wrapper.launches = PA._decode_wrapper.launches = 0
+        eng, outs, wall = run_engine(params, cfg, **options)
+        launches = {"mixed": PA._wrapper.launches,
+                    "decode": PA._decode_wrapper.launches}
+    return eng, outs, wall, shadow, launches
+
+
+def shadow_line(shadow):
+    return {"calls": shadow.calls, "apart": shadow.apart,
+            "max_abs_err": shadow.max_err,
+            "max_count_diff": shadow.max_count_diff,
+            "calls_using_slack": shadow.slack_used,
+            "rules": dict(shadow.rules)}
+
+
+def arena_bytes(eng):
+    return 2 * eng.pool.k.nelement() * eng.pool.k.element_size()
+
+
+def peak_memory(params, cfg, **options):
+    """max_memory_allocated over one engine run (the weights included),
+    after the caching allocator let go of what earlier runs left."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng, _, wall = run_engine(params, cfg, **options)
+    return {"kv_dtype": options.get("kv_dtype", "float32"),
+            "arena_bytes": arena_bytes(eng),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "tokens_per_s": eng.generated_tokens / wall}
+
+
+def narrow(args, dtype):
+    """A bucket's captured inputs with its arena (K, V) cast to `dtype`."""
+    return [args[0], args[1].to(dtype), args[2].to(dtype)] + list(args[3:])
+
+
+def phase_kv_dtype(params, cfg, ref_tokens, rec, dense):
+    """The bfloat16 arena on the main path (module docstring)."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import transformer as TT
+    t0 = time.perf_counter()
+    checks = {}
+    runs = {}
+    for name, c, p, opts in (
+            ("gpt2_spec_off", cfg, params, {}),
+            ("gpt2_spec_on", cfg, params,
+             dict(speculative=True, draft_len=SPEC_DRAFT_LEN)),
+            ("glm4-9b-2l", dense[0], dense[1], {})):
+        eng, outs, wall, shadow, cl = shadow_run(p, c, kv_dtype="bfloat16",
+                                                 **opts)
+        site = TT._kq_site(c, True)
+        toks = {o.req_id: o.tokens for o in outs}
+        line = {"config": c.name, "rule": site.rule,
+                "granularity": site.granularity,
+                "arena_dtype": str(eng.pool.k.dtype),
+                "arena_bytes": arena_bytes(eng), "steps": eng.mixed_steps,
+                "launches": cl, "shadow": shadow_line(shadow),
+                "tokens_per_s": eng.generated_tokens / wall,
+                "lamp_recompute_rate": eng.stats()["lamp_recompute_rate"]}
+        if c is cfg:
+            line["tokens_equal_float32_arena"] = (
+                f"{sum(a == b for r in toks for a, b in zip(toks[r], ref_tokens[r]))}"
+                f"/{sum(len(t) for t in toks.values())}")
+        runs[name] = line
+        checks[f"{name}_every_call_held"] = (
+            shadow.apart == 0 and shadow.calls > 0 and len(outs) == 8
+            and shadow.calls == sum(cl.values()) // PA.passes(site)
+            if not opts else shadow.apart == 0 and shadow.calls > 0
+            and len(outs) == 8)
+        checks[f"{name}_launched"] = cl["mixed"] > 0 and (
+            cl["decode"] > 0 if opts else True)
+        checks[f"{name}_arena_bfloat16"] = eng.pool.k.dtype == torch.bfloat16
+    # the arena's bytes and the run's peak memory, float32 against bfloat16
+    memory = [peak_memory(params, cfg, kv_dtype=d)
+              for d in ("float32", "bfloat16", "float32", "bfloat16")]
+    checks["arena_bytes_halve"] = all(
+        2 * m["arena_bytes"] == memory[0]["arena_bytes"] for m in memory[1::2])
+    # both kernels at every bucket of the engine runs, float32 and bfloat16
+    # arenas alternated; each bfloat16 call held to its plain version
+    buckets = []
+    for key in sorted(rec.captured, key=str):
+        kind, rows, w = key
+        args, site, tau, window = rec.captured[key]
+        slack = 1 if site.enabled and site.rule == "strict" else 0
+        prepare = PA.prepare_launch if kind == "mixed" else PA.prepare_decode_launch
+        plain = (PA.paged_mixed_attention_plain if kind == "mixed"
+                 else PA.paged_decode_attention_plain)
+        counter = PA._wrapper if kind == "mixed" else PA._decode_wrapper
+        before = counter.launches
+        nargs = narrow(args, torch.bfloat16)
+        launch16, out, nsel = prepare(*nargs, site, tau, window)
+        launch16()
+        ref, nref = plain(*nargs, site, tau=tau, window=window)
+        torch.cuda.synchronize()
+        if kind == "mixed":
+            err, dcnt, ok = compare(out, nsel.sum(dim=1), ref, nref, args[5], slack)
+            b32 = bound_at(args, site, None, nref, window)
+            b16 = bound_at(nargs, site, None, nref, window)
+        else:
+            err, dcnt, ok = compare_rows(out, nsel.sum(dim=1), ref, nref, slack)
+            b32 = decode_bound_at(args, site, nref, window)
+            b16 = decode_bound_at(nargs, site, nref, window)
+        launch32, _, _ = prepare(*args, site, tau, window)
+        ms = {"float32": [], "bfloat16": []}
+        for _ in range(2):
+            ms["float32"].append(time_device(launch32))
+            ms["bfloat16"].append(time_device(launch16))
+        counter.launches = before
+        line = {"kernel": f"paged_{kind}_attention", "bucket": f"{rows}x{w}",
+                "rule": site.rule if site.enabled else "off",
+                "calls": sum(rec.calls[key].values()),
+                "ms_float32": statistics.median(ms["float32"]),
+                "ms_bfloat16": statistics.median(ms["bfloat16"]),
+                "ms_runs": ms, "bound_ms_float32": b32[0],
+                "bound_ms_bfloat16": b16[0], "bytes_float32": b32[2],
+                "bytes_bfloat16": b16[2], "bfloat16_max_abs_err": err,
+                "bfloat16_max_count_diff": dcnt, "ok": ok}
+        buckets.append(line)
+        emit("kv_dtype_bucket", **line)
+    checks["buckets_bfloat16_held"] = all(b["ok"] for b in buckets) and \
+        len(buckets) == len(rec.captured)
+    # float16 once a kernel at the most common bucket of each, and
+    # bfloat16 through pass 2's recompute of y_low (nothing kept)
+    f16 = {}
+    keep = PA.YLOW_KEEP_MAX_BYTES
+    for kind, dtype, keep_max in (("mixed", torch.float16, keep),
+                                  ("decode", torch.float16, keep),
+                                  ("mixed", torch.bfloat16, 0)):
+        PA.YLOW_KEEP_MAX_BYTES = keep_max
+        key = max((k for k in rec.captured if k[0] == kind),
+                  key=lambda k: sum(rec.calls[k].values()))
+        args, site, tau, window = rec.captured[key]
+        nargs = narrow(args, dtype)
+        counter = PA._wrapper if kind == "mixed" else PA._decode_wrapper
+        before = counter.launches
+        slack = 1 if site.enabled and site.rule == "strict" else 0
+        if kind == "mixed":
+            out, nsel = PA.paged_mixed_attention(*nargs, site, tau=tau,
+                                                 window=window)
+            ref, nref = PA.paged_mixed_attention_plain(*nargs, site, tau=tau,
+                                                       window=window)
+            res = compare(out, nsel, ref, nref, args[5], slack)
+        else:
+            out, nsel = PA.paged_decode_attention(*nargs, site, tau=tau,
+                                                  window=window)
+            ref, nref = PA.paged_decode_attention_plain(*nargs, site, tau=tau,
+                                                        window=window)
+            res = compare_rows(out, nsel, ref, nref, slack)
+        f16[f"{kind} {dtype} keep<={keep_max}"] = {
+            "bucket": f"{key[1]}x{key[2]}", "launches":
+            counter.launches - before, "max_abs_err": res[0],
+            "max_count_diff": res[1], "ok": res[2]}
+        counter.launches = before
+    PA.YLOW_KEEP_MAX_BYTES = keep
+    checks["float16_and_recompute_held"] = all(
+        v["ok"] and v["launches"] > 0 for v in f16.values())
+    calls = lambda b: b["calls"]
+    summed = {d: sum(calls(b) * b[f"ms_{d}"] for b in buckets)
+              for d in ("float32", "bfloat16")}
+    seconds = time.perf_counter() - t0
+    print("kv_dtype calls x ms over the engine buckets: float32 "
+          f"{summed['float32']:.3f} bfloat16 {summed['bfloat16']:.3f}; arena "
+          f"bytes {memory[0]['arena_bytes']} -> {memory[1]['arena_bytes']}; "
+          f"peak memory {memory[0]['max_memory_allocated']} -> "
+          f"{memory[1]['max_memory_allocated']}", flush=True)
+    emit("kv_dtype", runs=runs, memory=memory, float16=f16,
+         calls_x_ms=summed, seconds=seconds, checks=checks,
+         ok=all(checks.values()))
+    require(all(checks.values()), f"kv_dtype phase failed its checks: {checks}")
+
+
+SAMPLED = dict(temperature=0.8, top_k=50)
+
+
+def phase_sampled(params, cfg):
+    """Threefry noise on the card against the CPU's, and sampled streams
+    (module docstring)."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving import sampling as SM
+    checks = {}
+    tiny = float(np.finfo(np.float32).tiny)
+    seeds = np.arange(8) * 977 - 3
+    counts = np.arange(8) * 13 + 5
+    V = cfg.vocab
+    noise = {}
+    for salt in (SM.SALT_SAMPLE, SM.SALT_DRAFT, SM.SALT_ACCEPT, SM.SALT_RESIDUAL):
+        u = {d: SM.row_uniform(seeds, counts, salt, (V,), d, minval=tiny).cpu()
+             for d in ("cuda", "cpu")}
+        uniform_equal = torch.equal(u["cuda"].view(torch.int32),
+                                    u["cpu"].view(torch.int32))
+        a = {d: -torch.log(u["cpu"].to(d)).cpu() for d in ("cuda", "cpu")}
+        outer = {d: -torch.log(a["cpu"].to(d)).cpu() for d in ("cuda", "cpu")}
+        ulp = lambda x, y: (x.view(torch.int32).long()
+                            - y.view(torch.int32).long()).abs().max().item()
+        g = {d: SM.row_gumbel(seeds, counts, salt, (V,), d).cpu()
+             for d in ("cuda", "cpu")}
+        an = a["cpu"].numpy()
+        gn = g["cpu"].numpy()
+        bound = 2 * np.spacing(np.abs(gn)) + 2 * np.spacing(an) / an
+        ratio = float((np.abs(g["cuda"].numpy() - gn) / bound).max())
+        noise[salt] = {"uniform_bit_equal": uniform_equal,
+                       "inner_log_max_ulp": ulp(a["cuda"], a["cpu"]),
+                       "outer_log_max_ulp": ulp(outer["cuda"], outer["cpu"]),
+                       "gumbel_max_abs": (g["cuda"] - g["cpu"]).abs().max().item(),
+                       "gumbel_max_over_bound": ratio}
+        checks[f"salt{salt}_uniforms_bit_equal"] = uniform_equal
+        checks[f"salt{salt}_gumbel_within_2ulp_a_log"] = (
+            noise[salt]["inner_log_max_ulp"] <= 2
+            and noise[salt]["outer_log_max_ulp"] <= 2 and ratio <= 1.0)
+    # the noise's time for one sampled step at the engine's 8 rows
+    logits = torch.randn(8, V, device=DEVICE)
+    temps = np.full(8, SAMPLED["temperature"], np.float32)
+    top = np.full(8, SAMPLED["top_k"])
+    gumbel_ms = time_call(lambda: SM.row_gumbel(seeds, counts, 0, (V,), DEVICE))
+    sample_ms = time_call(lambda: SM.sample_rows(logits, seeds, counts, temps, top))
+    greedy_ms = time_call(lambda: SM.sample_rows(logits, seeds, counts,
+                                                 np.zeros(8, np.float32)))
+    t0 = time.perf_counter()
+    SM.row_gumbel(seeds, counts, 0, (V,), DEVICE)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    # sampled streams, spec off and on, each run twice
+    streams = {}
+    for name, opts in (("spec_off", {}),
+                       ("spec_on", dict(speculative=True,
+                                        draft_len=SPEC_DRAFT_LEN))):
+        toks = []
+        for _ in range(2):
+            eng = make_engine(params, cfg, requests=False, **opts)
+            for i, prompt in enumerate(engine_requests(cfg)):
+                eng.add_request(prompt, SamplingParams(max_new_tokens=32,
+                                                       seed=i, **SAMPLED))
+            PA._wrapper.launches = PA._decode_wrapper.launches = 0
+            outs = eng.run_to_completion()
+            launches = {"mixed": PA._wrapper.launches,
+                        "decode": PA._decode_wrapper.launches}
+            check_loud(eng, f"sampled {name}")
+            toks.append({o.req_id: o.tokens for o in outs})
+        streams[name] = {"requests": len(toks[0]), "launches": launches,
+                         "tokens": sum(len(t) for t in toks[0].values()),
+                         "identical_twice": toks[0] == toks[1]}
+        checks[f"{name}_identical_twice"] = toks[0] == toks[1] and \
+            len(toks[0]) == 8
+        checks[f"{name}_launched"] = launches["mixed"] > 0 and (
+            launches["decode"] > 0 if opts else True)
+    emit("sampled", noise={str(k): v for k, v in noise.items()},
+         noise_ms={"row_gumbel_8x50257": gumbel_ms,
+                   "sample_rows_8_sampled": sample_ms,
+                   "sample_rows_8_greedy": greedy_ms,
+                   "row_gumbel_host_enqueue": host_ms},
+         streams=streams, checks=checks, ok=all(checks.values()))
+    require(all(checks.values()), f"sampled phase failed its checks: {checks}")
+
+
+def phase_policy(params, cfg):
+    """The adaptive policy loop through the kernels (module docstring)."""
+    from repro_torch.serving import PolicyConfig
+    checks = {}
+    runs = {}
+    tau0 = float(cfg.lamp.kq.tau)
+    for name, opts in (
+            ("tracking", dict(policy=PolicyConfig(enabled=True,
+                                                  target_rate=0.002))),
+            ("tight_pool", dict(n_blocks=41, policy=PolicyConfig(
+                enabled=True, target_rate=0.002)))):
+        eng, outs, wall, shadow, cl = shadow_run(params, cfg, **opts)
+        p = eng.stats()["policy"]
+        taus = eng.taus.cpu().tolist()
+        runs[name] = {"steps": eng.mixed_steps, "launches": cl,
+                      "shadow": shadow_line(shadow), "policy": p,
+                      "taus": taus, "preemptions": eng.num_preemptions,
+                      "requests": len(outs), "tokens_per_s":
+                      eng.generated_tokens / wall}
+        checks[f"{name}_every_call_held"] = (
+            shadow.apart == 0 and shadow.calls > 0 and cl["mixed"] > 0)
+        checks[f"{name}_all_finished"] = len(outs) == 8 and all(
+            o.error is None for o in outs)
+        checks[f"{name}_tau_moved"] = p["actuations"] > 0 and any(
+            t != np.float32(tau0) for t in taus)
+    tight = runs["tight_pool"]
+    checks["tight_pool_shed_dropped_rule"] = (
+        tight["preemptions"] > 0 and tight["policy"]["mode_transitions"] > 0
+        and tight["shadow"]["rules"].get("relaxed", 0) > 0)
+    emit("policy", runs=runs, checks=checks, ok=all(checks.values()))
+    require(all(checks.values()), f"policy phase failed its checks: {checks}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_device()
@@ -1406,8 +1732,12 @@ def main() -> int:
     rows = phase_kernels(rec, launches + spec_launches["mixed"],
                          spec_launches["decode"])
     phase_obs(params, cfg, ref_tokens)
-    phase_gather(params, cfg, gather_arm)
+    dense = phase_gather(params, cfg, gather_arm)
     phase_faults(params, cfg, ref_tokens)
+    phase_kv_dtype(params, cfg, ref_tokens, rec, dense)
+    del dense
+    phase_sampled(params, cfg)
+    phase_policy(params, cfg)
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows + micro_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

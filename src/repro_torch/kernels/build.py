@@ -37,9 +37,9 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "paged_attention.cu": {
         "lamp_paged_mixed_attention": (
-            [_P] * 11 + [_I] * 14 + [_F, _I, _P], _I),
+            [_P] * 11 + [_I] * 15 + [_F, _I, _P], _I),
         "lamp_paged_decode_attention": (
-            [_P] * 10 + [_I] * 13 + [_F, _I, _P], _I),
+            [_P] * 10 + [_I] * 14 + [_F, _I, _P], _I),
         "lamp_paged_attention_workspace": ([_I] * 7, _LL),
         "lamp_paged_attention_arrivals": ([_I] * 3, _LL),
         "lamp_round_to_mantissa": ([_P, _P, _LL, _I, _P], _I),

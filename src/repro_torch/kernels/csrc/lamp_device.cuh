@@ -52,9 +52,11 @@ __device__ __forceinline__ float round_to_mantissa(float x, int mu) {
 
 // The FP32 logit, d ascending, each product and sum rounded to FP32 (no
 // fmaf): repro_torch.core.mixed_matmul.slab_sums(q, k, 23, hd) bit for bit.
-__device__ __forceinline__ float dot_exact(const float* q, const float* k, int hd) {
+// k of any float type: a bfloat16 or float16 element widens exactly.
+template <class E>
+__device__ __forceinline__ float dot_exact(const float* q, const E* k, int hd) {
   float acc = 0.f;
-  for (int d = 0; d < hd; ++d) acc = __fadd_rn(acc, __fmul_rn(q[d], k[d]));
+  for (int d = 0; d < hd; ++d) acc = __fadd_rn(acc, __fmul_rn(q[d], static_cast<float>(k[d])));
   return acc;
 }
 

@@ -58,7 +58,13 @@
 //     same bits, and resets the counter to 0 for the next call (a one-pass
 //     call has no pass 1 to zero it). A tile with one split writes directly.
 // GQA is resolved in the head index (kv head = h / (H / Hkv)): K and V are
-// never repeated in memory. CUDA cores only: y_low must be bit-exact, and
+// never repeated in memory. The arena is float32, bfloat16 or float16 (the
+// engine's kv_dtype; both passes templated on its element type E): K and V
+// are staged in E (cp.async of 4 elements, 16 or 8 bytes) and widened to
+// FP32 as they are read from shared memory (or, in pass 2's recompute of a
+// kept y_low, from device memory), as the Pallas bodies widen any arena
+// dtype. Widening is exact, so q, the outputs, y_low and all arithmetic
+// stay FP32 and a narrow arena gives the bits of its float32 widening. CUDA cores only: y_low must be bit-exact, and
 // P.V's few products gain nothing from the tensor cores at these widths.
 //
 // Bit-exactness: y_low follows lamp_dev::dot_low_chunked (the chunk order of
@@ -67,6 +73,8 @@
 // as core.mixed_matmul.slab_sums(q, k, 23, hd)), and the selection rules
 // lamp_dev::lamp_selects.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -110,14 +118,71 @@ using TileOne = Tile<128, 2, 1, 1>;    // width 1: 64 keys; the second row's
 using TileWide = Tile<128, 4, 2, 2>;   // width 2 and up (verify rows, prefill
                                        // windows): 8 queries x 64 keys
 
-// Row stride of a staged K or V tile in floats: hd rounded up to an odd
-// number of 4-float groups, so one-row-a-lane float4 reads hit distinct banks.
+// Row stride of a staged K or V tile in elements: hd rounded up to an odd
+// number of 4-element groups, so one-row-a-lane reads of a group (16 bytes
+// in float32, 8 in bfloat16 / float16) hit distinct banks.
 __host__ __device__ constexpr int tile_stride(int hd) { return ((hd / 4) | 1) * 4; }
+
+// Arena element types by the C entries' kv_dtype code.
+enum KvDtype { KV_F32 = 0, KV_BF16 = 1, KV_F16 = 2 };
+
+// Four consecutive arena elements as floats (bfloat16 and float16 widened
+// exactly), from shared memory (load4) or device memory (ldg4).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 bf16x4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float f16_bits(unsigned h) {
+  return __half2float(__ushort_as_half((unsigned short)h));
+}
+
+__device__ __forceinline__ float4 f16x4(uint2 u) {
+  return make_float4(f16_bits(u.x & 0xffffu), f16_bits(u.x >> 16), f16_bits(u.y & 0xffffu),
+                     f16_bits(u.y >> 16));
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  return bf16x4(*reinterpret_cast<const uint2*>(p));
+}
+
+__device__ __forceinline__ float4 load4(const __half* p) {
+  return f16x4(*reinterpret_cast<const uint2*>(p));
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
+  return bf16x4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+
+__device__ __forceinline__ float4 ldg4(const __half* p) {
+  return f16x4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+// cp.async of four elements: 16 bytes of float32, 8 of a 16-bit type.
+template <class E>
+__device__ __forceinline__ void copy4(E* dst, const E* src, bool ok) {
+  if constexpr (sizeof(E) == 4)
+    cp_async16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src), ok);
+  else
+    tf32_mma::cp_async8(dst, src, ok);
+}
 
 struct Params {
   const float* q;        // (B, H, W, hd)
-  const float* k;        // (n_blocks, bs, Hkv, hd)
-  const float* v;        // (n_blocks, bs, Hkv, hd)
+  const void* k;         // (n_blocks, bs, Hkv, hd) of kv_dtype
+  const void* v;         // (n_blocks, bs, Hkv, hd) of kv_dtype
   const int* bt;         // (B, n_max)
   const int* starts;     // (B,) first query position; decode: lengths L
   const int* qlens;      // (B,) live queries; decode: unused
@@ -136,6 +201,7 @@ struct Params {
   int B, H, Hkv, W, hd, bs, n_max, Tk, NS, ntile;
   int bs_shift;          // log2(bs) for a power-of-two block size, else -1
   int mu, gran, rule, lamp, n_ref, window;   // window <= 0: none
+  int kv_dtype;          // KvDtype
   bool keep, decode, pdl;
   float scale;
 };
@@ -197,8 +263,8 @@ __device__ __forceinline__ size_t kv_offset(const Params& p, const Geo& g, int p
 // together; then, where the 4-float groups of a row divide the threads, a
 // thread keeps one column and walks the keys, else the (key, column) pairs
 // are strided over the threads. All threads of the unit call it.
-template <class T>
-__device__ __forceinline__ void stage(float* sK, float* sV, const Params& p, const Geo& g,
+template <class T, class E>
+__device__ __forceinline__ void stage(E* sK, E* sV, const Params& p, const Geo& g,
                                       int k0, int n) {
   __shared__ long long sOff[T::KS];
   for (int key = threadIdx.x; key < T::KS; key += T::NT)
@@ -214,8 +280,8 @@ __device__ __forceinline__ void stage(float* sK, float* sV, const Params& p, con
     const size_t at = ok ? (size_t)off : 0;
     for (int c = fixed ? threadIdx.x % groups : threadIdx.x; c < groups;
          c += fixed ? groups : T::NT) {
-      if (sK) cp_async16(sK + key * ld + 4 * c, p.k + at + 4 * c, ok);
-      if (sV) cp_async16(sV + key * ld + 4 * c, p.v + at + 4 * c, ok);
+      if (sK) copy4(sK + key * ld + 4 * c, static_cast<const E*>(p.k) + at + 4 * c, ok);
+      if (sV) copy4(sV + key * ld + 4 * c, static_cast<const E*>(p.v) + at + 4 * c, ok);
     }
   }
 }
@@ -236,14 +302,14 @@ __device__ __forceinline__ void load_q(float* sQ, const Params& p, const Geo& g,
 // FP32 product ye itself (dot_exact's order) with y = its rounding. At
 // granularity 1 each step is one multiply, one add and one rounding, with
 // the rounding's constants hoisted: no branch in the loop.
-template <class T>
+template <class T, class E>
 __device__ __forceinline__ void tile_logits(const Params& p, const float* sQ,
-                                            const float* sK, int r, int c, bool exact,
+                                            const E* sK, int r, int c, bool exact,
                                             float (&y)[T::QPT][T::KPT],
                                             float (&ye)[T::QPT][T::KPT]) {
   const int hd = p.hd, ld = tile_stride(hd);
   const float* qr = sQ + r * T::QPT * MAXD;
-  const float* kr = sK + c * ld;
+  const E* kr = sK + c * ld;
   float part[T::QPT][T::KPT];
 #pragma unroll
   for (int i = 0; i < T::QPT; ++i)
@@ -257,7 +323,7 @@ __device__ __forceinline__ void tile_logits(const Params& p, const float* sQ,
       for (int i = 0; i < T::QPT; ++i) a[i] = *reinterpret_cast<const float4*>(qr + i * MAXD + d);
 #pragma unroll
       for (int j = 0; j < T::KPT; ++j)
-        b[j] = *reinterpret_cast<const float4*>(kr + j * T::TC * ld + d);
+        b[j] = load4(kr + j * T::TC * ld + d);
 #pragma unroll
       for (int i = 0; i < T::QPT; ++i)
 #pragma unroll
@@ -285,7 +351,7 @@ __device__ __forceinline__ void tile_logits(const Params& p, const float* sQ,
       for (int i = 0; i < T::QPT; ++i) a[i] = *reinterpret_cast<const float4*>(qr + i * MAXD + d);
 #pragma unroll
       for (int j = 0; j < T::KPT; ++j)
-        b[j] = *reinterpret_cast<const float4*>(kr + j * T::TC * ld + d);
+        b[j] = load4(kr + j * T::TC * ld + d);
 #pragma unroll
       for (int i = 0; i < T::QPT; ++i)
 #pragma unroll
@@ -307,7 +373,7 @@ __device__ __forceinline__ void tile_logits(const Params& p, const float* sQ,
     for (int i = 0; i < T::QPT; ++i) a[i] = *reinterpret_cast<const float4*>(qr + i * MAXD + d);
 #pragma unroll
     for (int j = 0; j < T::KPT; ++j)
-      b[j] = *reinterpret_cast<const float4*>(kr + j * T::TC * ld + d);
+      b[j] = load4(kr + j * T::TC * ld + d);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
 #pragma unroll
@@ -332,10 +398,11 @@ __device__ __forceinline__ void tile_logits(const Params& p, const float* sQ,
 }
 
 // lamp_dev::dot_exact of a staged query and a K row in device memory.
-__device__ __forceinline__ float dot_exact_row(const float* q, const float* k, int hd) {
+template <class E>
+__device__ __forceinline__ float dot_exact_row(const float* q, const E* k, int hd) {
   float acc = 0.f;
   for (int d = 0; d < hd; d += 4) {
-    const float4 k4 = __ldg(reinterpret_cast<const float4*>(k + d));
+    const float4 k4 = ldg4(k + d);
     acc = __fadd_rn(acc, __fmul_rn(q[d], k4.x));
     acc = __fadd_rn(acc, __fmul_rn(q[d + 1], k4.y));
     acc = __fadd_rn(acc, __fmul_rn(q[d + 2], k4.z));
@@ -370,15 +437,22 @@ __device__ __forceinline__ void row_reduce(float& x, float& z, float* red) {
   __syncthreads();
 }
 
-__host__ __device__ constexpr size_t attend_smem_floats(int TQ, int KS, int G, int hd,
-                                                        bool keep) {
-  return (size_t)TQ * MAXD + (keep ? 0 : (size_t)KS * tile_stride(hd)) +
-         (size_t)KS * tile_stride(hd) + (size_t)TQ * KS + (G > 1 ? (size_t)G * TQ * MAXD : 0);
+// Dynamic shared memory of a pass in bytes: q (floats), the staged K and V
+// tiles (elements of esize bytes; each a multiple of 16 bytes), then pass
+// 2's numerators and key groups' P.V (floats).
+__host__ __device__ constexpr size_t stats_smem_bytes(int TQ, int KS, int hd, int esize) {
+  return 4 * (size_t)TQ * MAXD + (size_t)esize * KS * tile_stride(hd);
+}
+
+__host__ __device__ constexpr size_t attend_smem_bytes(int TQ, int KS, int G, int hd,
+                                                       bool keep, int esize) {
+  return 4 * (size_t)TQ * MAXD + (size_t)esize * (keep ? 1 : 2) * KS * tile_stride(hd) +
+         4 * ((size_t)TQ * KS + (G > 1 ? (size_t)G * TQ * MAXD : 0));
 }
 
 // Pass 1: y_low of the split's live pairs into the scratch (when kept), and
 // the split's (smax, m, l) per live query.
-template <class T>
+template <class T, class E>
 __global__ void __launch_bounds__(T::NT) stats_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[2 * T::NWARP];
@@ -388,8 +462,8 @@ __global__ void __launch_bounds__(T::NT) stats_kernel(Params p) {
   if (s >= g.nlive) return;
   const int k0 = g.lo_key + s * T::KS, n = min(T::KS, g.hi_key - k0 + 1);
   float* sQ = smem;
-  float* sK = sQ + T::TQ * MAXD;
-  stage<T>(sK, nullptr, p, g, k0, n);
+  E* sK = reinterpret_cast<E*>(sQ + T::TQ * MAXD);
+  stage<T, E>(sK, nullptr, p, g, k0, n);
   cp_async_commit();
   load_q<T>(sQ, p, g, bh);
   cp_async_wait<0>();
@@ -398,7 +472,7 @@ __global__ void __launch_bounds__(T::NT) stats_kernel(Params p) {
   const int r = threadIdx.x / T::TC, c = threadIdx.x % T::TC;
   const bool exact = p.mu >= 23 || p.gran <= 0 || p.gran >= p.hd;
   float y[T::QPT][T::KPT], ye[T::QPT][T::KPT];
-  tile_logits<T>(p, sQ, sK, r, c, exact, y, ye);
+  tile_logits<T, E>(p, sQ, sK, r, c, exact, y, ye);
 #pragma unroll
   for (int i = 0; i < T::QPT; ++i) {
     const int qq = r * T::QPT + i;
@@ -431,7 +505,7 @@ __global__ void __launch_bounds__(T::NT) stats_kernel(Params p) {
 
 // Pass 2: select, recompute, the split's softmax partial; the tile's last
 // unit to arrive merges the splits.
-template <class T, bool KEEP>
+template <class T, bool KEEP, class E>
 __global__ void __launch_bounds__(T::NT) attend_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[2 * T::NWARP];
@@ -454,11 +528,11 @@ __global__ void __launch_bounds__(T::NT) attend_kernel(Params p) {
   const int k0 = g.lo_key + s * T::KS, n = min(T::KS, g.hi_key - k0 + 1);
 
   float* sQ = smem;
-  float* sK = sQ + T::TQ * MAXD;                  // staged only when recomputing
-  float* sV = sK + (KEEP ? 0 : T::KS * ld);
-  float* sP = sV + T::KS * ld;                    // (TQ, KS) softmax numerators
+  E* sK = reinterpret_cast<E*>(sQ + T::TQ * MAXD);   // staged only when recomputing
+  E* sV = sK + (KEEP ? 0 : T::KS * ld);
+  float* sP = reinterpret_cast<float*>(sV + T::KS * ld);   // (TQ, KS) numerators
   float* sA = sP + T::TQ * T::KS;                 // (G, TQ, MAXD) key groups' P.V
-  stage<T>(KEEP ? nullptr : sK, sV, p, g, k0, n);
+  stage<T, E>(KEEP ? nullptr : sK, sV, p, g, k0, n);
   cp_async_commit();
   load_q<T>(sQ, p, g, bh);
   if (p.pdl) asm volatile("griddepcontrol.wait;" ::: "memory");   // pass 1 done
@@ -488,7 +562,7 @@ __global__ void __launch_bounds__(T::NT) attend_kernel(Params p) {
 
   const int r = tid / T::TC, c = tid % T::TC;
   float y[T::QPT][T::KPT], ye[T::QPT][T::KPT];
-  if (!KEEP) tile_logits<T>(p, sQ, sK, r, c, exact, y, ye);
+  if (!KEEP) tile_logits<T, E>(p, sQ, sK, r, c, exact, y, ye);
   const int cap = p.window > 0 ? p.window : p.Tk;   // relaxed_ln row length cap
 #pragma unroll
   for (int i = 0; i < T::QPT; ++i) {
@@ -518,7 +592,9 @@ __global__ void __launch_bounds__(T::NT) attend_kernel(Params p) {
         if (sel) {
           cnt += 1.f;
           if (exact) yv = ye[i][j];
-          else if (KEEP) yv = dot_exact_row(sQ + qq * MAXD, p.k + kv_offset(p, g, pos), hd);
+          else if (KEEP)
+            yv = dot_exact_row(sQ + qq * MAXD,
+                               static_cast<const E*>(p.k) + kv_offset(p, g, pos), hd);
           else yv = dot_exact(sQ + qq * MAXD, sK + key * ld, hd);
         }
       }
@@ -557,10 +633,10 @@ __global__ void __launch_bounds__(T::NT) attend_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < DPL; ++j) acc[a][j] = 0.f;
   for (int kk = wg * KG; kk < min((wg + 1) * KG, n); ++kk) {
-    const float* vr = sV + kk * ld;
+    const E* vr = sV + kk * ld;
     float vv[DPL];
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) vv[j] = lane + 32 * j < hd ? vr[lane + 32 * j] : 0.f;
+    for (int j = 0; j < DPL; ++j) vv[j] = lane + 32 * j < hd ? to_f32(vr[lane + 32 * j]) : 0.f;
 #pragma unroll
     for (int a = 0; a < T::QPW; ++a) {
       const float pj = sP[(wq + T::NWQ * a) * T::KS + kk];
@@ -703,8 +779,8 @@ cudaError_t launch(Kernel kernel, int threads, size_t& granted, size_t bytes, di
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// Bind the workspace and launch one pass with tile T.
-template <class T>
+// Bind the workspace and launch one pass with tile T on an arena of E.
+template <class T, class E>
 int run(Params p, void* work, int pass, cudaStream_t s) {
   const long long rows = (long long)p.B * p.H * p.W;
   const Workspace ws = workspace<T>(rows, p.Tk, p.hd, p.keep);
@@ -719,17 +795,24 @@ int run(Params p, void* work, int pass, cudaStream_t s) {
   const dim3 grid(p.NS, p.ntile, p.B * p.H);
   if (pass == 1) {
     static size_t granted = 48 * 1024;
-    const size_t bytes = sizeof(float) * ((size_t)T::TQ * MAXD + (size_t)T::KS * tile_stride(p.hd));
-    return (int)launch(stats_kernel<T>, T::NT, granted, bytes, grid, s, p, false);
+    const size_t bytes = stats_smem_bytes(T::TQ, T::KS, p.hd, sizeof(E));
+    return (int)launch(stats_kernel<T, E>, T::NT, granted, bytes, grid, s, p, false);
   }
   p.pdl = p.lamp && p.rule != RULE_NONE;          // a two-pass call: after pass 1
-  const size_t bytes = sizeof(float) * attend_smem_floats(T::TQ, T::KS, T::G, p.hd, p.keep);
+  const size_t bytes = attend_smem_bytes(T::TQ, T::KS, T::G, p.hd, p.keep, sizeof(E));
   if (p.keep) {
     static size_t granted = 48 * 1024;
-    return (int)launch(attend_kernel<T, true>, T::NT, granted, bytes, grid, s, p, p.pdl);
+    return (int)launch(attend_kernel<T, true, E>, T::NT, granted, bytes, grid, s, p, p.pdl);
   }
   static size_t granted = 48 * 1024;
-  return (int)launch(attend_kernel<T, false>, T::NT, granted, bytes, grid, s, p, p.pdl);
+  return (int)launch(attend_kernel<T, false, E>, T::NT, granted, bytes, grid, s, p, p.pdl);
+}
+
+template <class T>
+int run_dtype(Params& p, void* work, int pass, cudaStream_t s) {
+  if (p.kv_dtype == KV_BF16) return run<T, __nv_bfloat16>(p, work, pass, s);
+  if (p.kv_dtype == KV_F16) return run<T, __half>(p, work, pass, s);
+  return run<T, float>(p, work, pass, s);
 }
 
 // The tile a call of W queries a row uses.
@@ -737,14 +820,16 @@ inline int tile_of(int W) { return W == 1 ? 0 : 1; }
 
 int dispatch(Params& p, void* work, int pass, cudaStream_t s) {
   if (p.hd > MAXD || p.hd % 4 != 0 || p.hd <= 0 || p.Hkv <= 0 || p.H % p.Hkv != 0 ||
-      p.bs <= 0 || p.n_max <= 0 || p.W <= 0 || (pass != 1 && pass != 2))
+      p.bs <= 0 || p.n_max <= 0 || p.W <= 0 || (pass != 1 && pass != 2) ||
+      (unsigned)p.kv_dtype > (unsigned)KV_F16)
     return (int)cudaErrorInvalidValue;
   if (p.B <= 0) return 0;
   p.Tk = p.n_max * p.bs;
   p.bs_shift = (p.bs & (p.bs - 1)) == 0 ? __builtin_ctz((unsigned)p.bs) : -1;
   // one-pass calls have no pass 1 to keep y_low: pass 2 computes it
   p.keep = p.keep && p.lamp && p.rule != RULE_NONE;
-  return tile_of(p.W) == 0 ? run<TileOne>(p, work, pass, s) : run<TileWide>(p, work, pass, s);
+  return tile_of(p.W) == 0 ? run_dtype<TileOne>(p, work, pass, s)
+                           : run_dtype<TileWide>(p, work, pass, s);
 }
 
 long long workspace_bytes(int B, int H, int W, int hd, int bs, int n_max, int keep) {
@@ -780,22 +865,25 @@ long long lamp_paged_attention_arrivals(int B, int H, int W) {
 // Mixed rows. pass 1 = y_low and the split statistics (a selecting rule
 // only), pass 2 = select, recompute, attend and merge. work:
 // lamp_paged_attention_workspace bytes, the same for both passes; arrive:
-// lamp_paged_attention_arrivals int32 counters, zero; out (B, H, W, hd) and
-// cnt (B, H, W) float32. Returns the CUDA error of the launch (0 = success).
+// lamp_paged_attention_arrivals int32 counters, zero; q float32; k and v
+// the arena of kv_dtype (0 float32, 1 bfloat16, 2 float16), 16-byte
+// aligned; out (B, H, W, hd) and cnt (B, H, W) float32. Returns the CUDA
+// error of the launch (0 = success).
 int lamp_paged_mixed_attention(const void* q, const void* k, const void* v,
                                const void* bt, const void* starts, const void* qlens,
                                const void* tau, void* work, void* arrive, void* out,
                                void* cnt, int B, int H, int Hkv, int W, int hd, int bs,
                                int n_max, int mu, int gran, int rule, int lamp, int n_ref,
-                               int window, int keep, float scale, int pass, void* stream) {
+                               int window, int keep, int kv_dtype, float scale, int pass,
+                               void* stream) {
   Params p = {};
-  p.q = (const float*)q; p.k = (const float*)k; p.v = (const float*)v;
+  p.q = (const float*)q; p.k = k; p.v = v;
   p.bt = (const int*)bt; p.starts = (const int*)starts; p.qlens = (const int*)qlens;
   p.tau = (const float*)tau; p.arrive = (int*)arrive;
   p.out = (float*)out; p.cnt = (float*)cnt;
   p.B = B; p.H = H; p.Hkv = Hkv; p.W = W; p.hd = hd; p.bs = bs; p.n_max = n_max;
   p.mu = mu; p.gran = gran; p.rule = rule; p.lamp = lamp; p.n_ref = n_ref;
-  p.window = window; p.scale = scale;
+  p.window = window; p.scale = scale; p.kv_dtype = kv_dtype;
   p.keep = keep != 0;
   p.decode = false;
   return dispatch(p, work, pass, (cudaStream_t)stream);
@@ -803,21 +891,23 @@ int lamp_paged_mixed_attention(const void* q, const void* k, const void* v,
 
 // Decode rows: one query per row at position lengths[r] - 1, the mixed
 // kernel at W = 1 with relaxed_ln's row length L. q (R, H, 1, hd); out
-// (R, H, 1, hd), cnt (R, H); work and arrive as for the mixed rows at W = 1.
+// (R, H, 1, hd), cnt (R, H); work, arrive, k, v and kv_dtype as for the
+// mixed rows at W = 1.
 int lamp_paged_decode_attention(const void* q, const void* k, const void* v,
                                 const void* bt, const void* lengths, const void* tau,
                                 void* work, void* arrive, void* out, void* cnt, int R,
                                 int H, int Hkv, int hd, int bs, int n_max, int mu,
                                 int gran, int rule, int lamp, int n_ref, int window,
-                                int keep, float scale, int pass, void* stream) {
+                                int keep, int kv_dtype, float scale, int pass,
+                                void* stream) {
   Params p = {};
-  p.q = (const float*)q; p.k = (const float*)k; p.v = (const float*)v;
+  p.q = (const float*)q; p.k = k; p.v = v;
   p.bt = (const int*)bt; p.starts = (const int*)lengths; p.qlens = nullptr;
   p.tau = (const float*)tau; p.arrive = (int*)arrive;
   p.out = (float*)out; p.cnt = (float*)cnt;
   p.B = R; p.H = H; p.Hkv = Hkv; p.W = 1; p.hd = hd; p.bs = bs; p.n_max = n_max;
   p.mu = mu; p.gran = gran; p.rule = rule; p.lamp = lamp; p.n_ref = n_ref;
-  p.window = window; p.scale = scale;
+  p.window = window; p.scale = scale; p.kv_dtype = kv_dtype;
   p.keep = keep != 0;
   p.decode = true;
   return dispatch(p, work, pass, (cudaStream_t)stream);

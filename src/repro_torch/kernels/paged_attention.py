@@ -29,6 +29,14 @@ kernel's order (``order="kernel"``: y_low and the recomputed logits summed
 d ascending as the kernel sums them), so that on a card the kernel's
 counts equal its plain version's, whatever backend runs the latter.
 
+The arena (K and V) is float32, bfloat16 or float16 (``KV_DTYPES``, the
+engine's ``kv_dtype``); q and both outputs are float32. The kernel stages
+K and V in the arena's own type and widens them to FP32 as it reads them,
+as the Pallas bodies do; the plain versions widen the gathered span
+(``.float()``) before they compute. Widening is exact, so a narrow arena
+gives the kernel and its plain version the bits of its float32 widening,
+and no pass over the arena is added to widen it.
+
 What bounds the kernel on the H100: not bytes (a few MB a call at the
 engine's buckets) but the latency of the y_low chains at granularity 1 (hd
 dependent multiply / add / round steps per query-key pair). The kernel
@@ -53,6 +61,8 @@ from repro_torch.core.attention import (attention_lamp, attention_reference,
 from repro_torch.core.policy import LampSite
 
 RULE_CODES = {"none": 0, "strict": 1, "relaxed": 2, "relaxed_ln": 3}
+# arena element types the kernel reads, by csrc/paged_attention.cu's code
+KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # csrc/paged_attention.cu's tiles by the bucket's window W (1; wider):
 # (NT, TR, QPT, KPT), NT threads a unit in TR rows, each QPT queries x KPT
@@ -107,8 +117,9 @@ def paged_mixed_attention_plain(q, arena_k, arena_v, block_tables, starts,
     _, bs, Hkv, _ = arena_k.shape
     n_max = block_tables.shape[1]
     bt = block_tables.long()
-    ks = arena_k[bt].reshape(B, n_max * bs, Hkv, hd)
-    vs = arena_v[bt].reshape(B, n_max * bs, Hkv, hd)
+    # widened after the gather, as the kernel widens what it stages
+    ks = arena_k[bt].float().reshape(B, n_max * bs, Hkv, hd)
+    vs = arena_v[bt].float().reshape(B, n_max * bs, Hkv, hd)
     kh = _repeat_kv(ks.permute(0, 2, 1, 3), H // Hkv)
     vh = _repeat_kv(vs.permute(0, 2, 1, 3), H // Hkv)
     if site.enabled:
@@ -137,8 +148,11 @@ def _check_arena(q, arena_k, arena_v, block_tables, site, window) -> int:
     """Checks shared by both kernels; returns the arena's Hkv."""
     dev = q.device
     _check("q", q, torch.float32, 4, dev)
-    _check("arena_k", arena_k, torch.float32, 4, dev)
-    _check("arena_v", arena_v, torch.float32, 4, dev)
+    if arena_k.dtype not in KV_DTYPES:
+        raise TypeError(f"arena_k must be one of {list(KV_DTYPES)}, got "
+                        f"{arena_k.dtype}")
+    _check("arena_k", arena_k, arena_k.dtype, 4, dev)
+    _check("arena_v", arena_v, arena_k.dtype, 4, dev)
     _check("block_tables", block_tables, torch.int32, 2, dev)
     B, H, _, hd = q.shape
     _, _, Hkv, hd_k = arena_k.shape
@@ -246,7 +260,8 @@ def prepare_launch(q, arena_k, arena_v, block_tables, starts, qlens, site,
             block_tables.data_ptr(), starts.data_ptr(), qlens.data_ptr(),
             tau.data_ptr(), work.data_ptr(), arrive.data_ptr(), out.data_ptr(),
             cnt.data_ptr(), B, H, Hkv, W, hd, bs, n_max,
-            *_site_args(site, window), int(keep), hd ** -0.5)
+            *_site_args(site, window), int(keep), KV_DTYPES[arena_k.dtype],
+            hd ** -0.5)
     stream = torch.cuda.current_stream(dev).cuda_stream
     launch = _launcher("paged_mixed_attention", lib.lamp_paged_mixed_attention,
                        args, n_pass, stream, (tau, work, arrive))
@@ -260,7 +275,7 @@ def paged_mixed_attention(q, arena_k, arena_v, block_tables, starts, qlens,
     """Mixed-row LAMP attention straight off the paged arena.
 
     q: (B, H, W, hd) float32; arena_k / arena_v: (n_blocks, block_size, Hkv,
-    hd) float32 (one layer); block_tables: (B, n_max) int32 (0 = the null
+    hd) of one ``KV_DTYPES`` type (one layer); block_tables: (B, n_max) int32 (0 = the null
     block); starts, qlens: (B,) int32; tau: optional float32 value on q's
     device overriding ``site.tau`` (the engine passes ``taus[l]``). Returns
     (out (B, H, W, hd) float32, n_selected (B, W) float32 summed over
@@ -319,8 +334,8 @@ def paged_decode_attention_plain(q, arena_k, arena_v, block_tables, lengths,
     _, bs, Hkv, _ = arena_k.shape
     n_max = block_tables.shape[1]
     bt = block_tables.long()
-    ks = arena_k[bt].reshape(R, n_max * bs, Hkv, hd)
-    vs = arena_v[bt].reshape(R, n_max * bs, Hkv, hd)
+    ks = arena_k[bt].float().reshape(R, n_max * bs, Hkv, hd)
+    vs = arena_v[bt].float().reshape(R, n_max * bs, Hkv, hd)
     kh = _repeat_kv(ks.permute(0, 2, 1, 3), H // Hkv)
     vh = _repeat_kv(vs.permute(0, 2, 1, 3), H // Hkv)
     out, aux = decode_attention_lamp(q, kh, vh, lengths, site, window=window,
@@ -354,7 +369,7 @@ def prepare_decode_launch(q, arena_k, arena_v, block_tables, lengths, site,
             block_tables.data_ptr(), lengths.data_ptr(), tau.data_ptr(),
             work.data_ptr(), arrive.data_ptr(), out.data_ptr(), cnt.data_ptr(),
             R, H, Hkv, hd, bs, n_max, *_site_args(site, window), int(keep),
-            hd ** -0.5)
+            KV_DTYPES[arena_k.dtype], hd ** -0.5)
     stream = torch.cuda.current_stream(dev).cuda_stream
     launch = _launcher("paged_decode_attention", lib.lamp_paged_decode_attention,
                        args, n_pass, stream, (tau, work, arrive))
@@ -368,7 +383,7 @@ def paged_decode_attention(q, arena_k, arena_v, block_tables, lengths,
     """One decode step straight off the paged arena.
 
     q: (R, H, 1, hd) float32; arena_k / arena_v: (n_blocks, block_size, Hkv,
-    hd) float32 (one layer); block_tables: (R, n_max) int32; lengths: (R,)
+    hd) of one ``KV_DTYPES`` type (one layer); block_tables: (R, n_max) int32; lengths: (R,)
     int32 *effective* lengths (the new token's K/V already written, so the
     valid keys are [0, lengths[r])); tau: optional float32 value on q's
     device overriding ``site.tau``. Returns (out (R, H, 1, hd) float32,

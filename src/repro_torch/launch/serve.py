@@ -32,6 +32,11 @@ faults at those per-step rates (`--fault-salt` is the replay key,
 `--fault-max` caps the total). With faults on the summary gains a
 `[serve] faults:` line; any request that failed alone (timeout, exhausted
 recovery ladder, stall) or was rejected makes the CLI exit 1.
+
+Policy: `--policy` turns on the adaptive LAMP policy loop (per-layer tau
+toward `--target-recompute-rate`, degrading draft length and rule tier
+under pool pressure or a missed `--latency-slo`); the summary gains a
+`[serve] policy:` line and `--metrics-every` lines show its mode.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from repro_torch.configs import get_config, list_archs, reduced as reduce_cfg
 from repro_torch.models import transformer
 from repro_torch.obs import ObsConfig
 from repro_torch.serving import (EngineConfig, FaultConfig, LampEngine,
-                                 QueueFullError, SamplingParams)
+                                 PolicyConfig, QueueFullError, SamplingParams)
 from repro_torch.serving.engine import TEXT_FAMILIES
 
 
@@ -76,8 +81,10 @@ def build_stream(rng: np.random.Generator, args, vocab: int):
 
 
 def metrics_line(engine: LampEngine, elapsed: float) -> str:
-    """One-line live snapshot for periodic progress logging (the JAX line,
-    whose policy mode and audited flip rate read "off" and "-" here)."""
+    """One-line live snapshot for periodic progress logging (the JAX
+    line). Carries the policy mode, so a burst-load run is readable from
+    the log alone ("mode=shed" explains a rate drop); the audited flip
+    rate reads "-" (the port has no audit)."""
     s = engine.stats()
     mode = s["policy"]["mode"] if s["policy"]["enabled"] else "off"
     audit = s["audit"]
@@ -183,6 +190,20 @@ def main(argv=None) -> int:
                          "non-speculative decoding)")
     ap.add_argument("--draft-len", type=int, default=4,
                     help="speculative draft tokens per sequence per round")
+    ap.add_argument("--policy", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="adaptive LAMP policy loop: actuate per-layer "
+                         "thresholds toward --target-recompute-rate every "
+                         "step (written in place into the tensor the kernel "
+                         "reads) and degrade draft length / rule tier under "
+                         "KV-pool pressure")
+    ap.add_argument("--target-recompute-rate", type=float, default=0.05,
+                    help="per-layer LAMP recompute-rate setpoint the "
+                         "policy controller steers tau toward")
+    ap.add_argument("--latency-slo", type=float, default=0.0,
+                    help="step-latency SLO in seconds; exceeding it is "
+                         "pressure that degrades the policy mode (0 = no "
+                         "latency signal)")
     ap.add_argument("--deadline", type=float, default=0.0,
                     help="per-request wall-clock TTL in seconds; an "
                          "expired request is cancelled with "
@@ -256,16 +277,20 @@ def main(argv=None) -> int:
     faults = FaultConfig(enabled=any(r > 0 for r in fault_rates.values()),
                          salt=args.fault_salt, max_faults=args.fault_max,
                          **fault_rates)
+    policy = PolicyConfig(enabled=args.policy,
+                          target_rate=args.target_recompute_rate,
+                          latency_slo_s=args.latency_slo)
     engine = LampEngine(cfg, params, EngineConfig(
         max_model_len=max_len, use_lamp=not args.no_lamp,
         speculative=args.speculative, draft_len=args.draft_len,
         kernel=args.kernel, obs=obs, device=str(device), faults=faults,
-        max_queue=args.max_queue))
+        max_queue=args.max_queue, policy=policy))
     stream = build_stream(np.random.default_rng(args.seed), args, cfg.vocab)
     print(f"[serve] arch={cfg.name} device={device} lamp={not args.no_lamp} "
           f"qps={args.qps} requests={args.num_requests} "
           f"pool={engine.pool.num_total}x{engine.pool.block_size} blocks "
-          f"kernel={args.kernel} speculative={args.speculative}")
+          f"kernel={args.kernel} speculative={args.speculative} "
+          f"policy={args.policy}")
 
     outputs: List = []
     with engine.obs.profile():
@@ -325,6 +350,13 @@ def main(argv=None) -> int:
               f"(per-request mean {np.mean(acc) if acc else 0.0:.2%}), "
               f"{s['spec_tokens_per_round']:.2f} tokens/round, "
               f"verify recompute rate {s['verify_recompute_rate']:.4f}")
+    if args.policy:
+        p = s["policy"]
+        print(f"[serve] policy: mode={p['mode']} "
+              f"({p['mode_transitions']} transitions, "
+              f"{p['actuations']} actuations), tau mean {p['tau_mean']:.4f} "
+              f"[{p['tau_min']:.4f}, {p['tau_max']:.4f}], "
+              f"draft_len={p['draft_len']}")
     if s["faults"]["enabled"] or s["recoveries"] or s["failed_requests"]:
         f = s["faults"]
         by = (" ".join(f"{k}={v}" for k, v in f["by_site"].items())

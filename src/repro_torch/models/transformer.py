@@ -225,7 +225,10 @@ def _paged_window_apply(cfg, params, tokens, arena, block_tables, starts,
     (n_selected, n_valid). `taus` ((L,) float32 on the device) carries the
     per-layer KQ thresholds; layer l's kernel reads taus[l] from device
     memory. The query heads reach attention in FP32, whatever the model's
-    dtype (the JAX kernels widen them inside; the CUDA kernel takes FP32)."""
+    dtype (the JAX kernels widen them inside; the CUDA kernel takes FP32).
+    A bfloat16 or float16 arena is written by casting (round to nearest
+    even, as JAX's `astype`) and read widened to FP32: by the kernel as it
+    stages K and V, by the plain versions after their gather."""
     attend, _ = LY.paged_attention_fns(kernel)
     B, W = tokens.shape
     dev = tokens.device

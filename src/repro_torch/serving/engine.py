@@ -57,6 +57,22 @@ propagates out of `step()`. Deadlines (`SamplingParams.deadline_s`), a
 bounded admission queue (`max_queue`, `QueueFullError`), the stall
 watchdog of `run_to_completion` (`stall_patience`), `paranoid` pool checks
 and `defrag()` complete the JAX engine's recovery half.
+
+The arena's dtype (``EngineConfig.kv_dtype``: float32, bfloat16 or
+float16) is the pool's; the CUDA kernel reads a narrow arena itself and
+widens K and V to FP32 as it reads them, and the plain versions widen the
+gathered span, so no pass over the arena is added. Sampled rows draw the
+JAX engine's threefry noise (``sampling.row_key``), so sampled streams
+equal the JAX engine's token for token on the same plan stream.
+
+The adaptive LAMP policy loop (``serving/policy.py``, ``EngineConfig.policy``)
+runs after every step that ran a plan (and after an injected stall, with
+its latency): it reads the step's per-layer recompute rates, the pool's
+utilization, preemptions, recoveries, the step's wall time and the draft
+acceptance, then writes the per-layer thresholds into the device tensor
+the kernel reads (``taus``, in place), sets the scheduler's draft length
+and, under SHED, the rule tier every later step's ``site.rule`` comes
+from (``_serving_cfg``).
 """
 
 from __future__ import annotations
@@ -76,11 +92,15 @@ from . import sampling as SM
 from . import speculative as SP
 from .faults import FaultConfig, FaultInjector, StepLaunchFault
 from .kv_pool import PagedKVPool
+from .policy import PolicyConfig, PolicyController, PolicySignals
 from .request import SamplingParams, Sequence, SequenceStatus
 from .scheduler import Scheduler, StepPlan
 
 TEXT_FAMILIES = transformer.FAMILIES
 LAUNCH_KINDS = ("prefill", "decode", "draft", "verify", "mixed")
+# arena dtypes the paged kernel reads (EngineConfig.kv_dtype)
+KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "float16": torch.float16}
 
 # (step function, model/engine key, draft length, top-k variant, bucket)
 # keys run so far in this process: the counterpart of the JAX engine's jit
@@ -109,6 +129,9 @@ class EngineConfig:
     max_prefill_tokens: int = 2048  # prefill-step token budget = chunk size
     max_decode_batch: int = 32
     use_lamp: bool = True
+    # the paged KV arena's dtype (one of KV_DTYPES): the kernel widens a
+    # bfloat16 or float16 arena to FP32 as it reads it
+    kv_dtype: str = "float32"
     # prefix caching: requests sharing a prompt prefix map their block
     # tables onto the same arena rows (refcounted, copy-on-write)
     prefix_cache: bool = True
@@ -135,6 +158,12 @@ class EngineConfig:
     # always on; obs.trace additionally records step-phase spans for
     # Chrome-trace export (see repro_torch.obs.ObsConfig)
     obs: ObsConfig = ObsConfig()
+    # adaptive LAMP policy loop (serving/policy.py): per-layer thresholds
+    # moved toward target recompute rates every step (written in place into
+    # the device tensor the kernel reads), with load-aware degradation of
+    # draft length and rule tier under pool pressure. Off by default: the
+    # engine then runs the static site tau
+    policy: PolicyConfig = PolicyConfig()
     # finished RequestOutputs retained for exact end-of-run percentiles
     finished_retention: int = 1024
     device: str = "cuda"
@@ -203,10 +232,12 @@ def _bucket(n: int, cap: int) -> int:
     return min(b, cap) if cap else b
 
 
-def retry_ladder(cfg, econfig: EngineConfig, on_card: bool) -> List[tuple]:
+def retry_ladder(cfg, econfig: EngineConfig, on_card: bool,
+                 serving_cfg=None) -> List[tuple]:
     """(action, cfg, use_lamp, kernel) escalation rungs for retrying a
     quarantined row, cheapest first: (0) plain re-run of the step's own
-    configuration -- sampling is keyed on (seed, tokens generated), not on
+    configuration (`serving_cfg`, the rule tier the policy left in force;
+    default `cfg`) -- sampling is keyed on (seed, tokens generated), not on
     batch shape; (1) the strict LAMP rule; (2) the gather path, the plain
     PyTorch versions instead of the kernels; (3) FP32 reference, no LAMP,
     on the gather path. Bounded by EngineConfig.max_retries.
@@ -218,7 +249,7 @@ def retry_ladder(cfg, econfig: EngineConfig, on_card: bool) -> List[tuple]:
     (where the "cuda" path is the plain versions anyway) the ladder is the
     JAX "pallas" path's; the "gather" path's is JAX "gather"'s."""
     kq = cfg.lamp.kq
-    ladder = [("retry", cfg, econfig.use_lamp, econfig.kernel)]
+    ladder = [("retry", serving_cfg or cfg, econfig.use_lamp, econfig.kernel)]
     if econfig.use_lamp and kq.enabled and kq.rule != "strict":
         strict = cfg.replace(
             lamp=cfg.lamp.replace(kq=kq.replace(rule="strict")))
@@ -251,6 +282,9 @@ class LampEngine:
             raise ValueError(f"mixed_exec must be 'fused' or 'split', got "
                              f"{econfig.mixed_exec!r}")
         transformer.check_kernel(econfig.kernel)
+        if econfig.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {list(KV_DTYPES)}, "
+                             f"got {econfig.kv_dtype!r}")
         self.device = transformer.resolve_device(econfig.device)
         tok = params["embed"]["tok"]
         if tok.device.type != self.device.type:
@@ -274,7 +308,7 @@ class LampEngine:
         self.obs = Observability(econfig.obs, clock=clock)
         self._now = self.obs.now
         self.pool = PagedKVPool(cfg, n_blocks=n_blocks, block_size=bs,
-                                dtype=torch.float32,   # the kernel's K/V type
+                                dtype=KV_DTYPES[econfig.kv_dtype],
                                 enable_prefix_cache=econfig.prefix_cache,
                                 device=self.device)
         self.scheduler = Scheduler(
@@ -293,9 +327,11 @@ class LampEngine:
         self._start: Optional[float] = None
         self._util_sum = 0.0
         self._util_n = 0
-        # the step keys' model part (hashed once: a frozen config hashes
-        # every field)
-        self._step_key = hash((cfg, econfig.use_lamp, econfig.kernel))
+        # the step keys' model part by rule tier (hashed once per tier: a
+        # frozen config hashes every field), and the configs of the tiers
+        # the policy swapped to
+        self._step_keys: Dict[Optional[str], int] = {}
+        self._cfg_cache: Dict[str, Any] = {}
 
         # -- metrics registry: the one source of truth for the engine's
         # cumulative counters (stats() and the attribute properties below
@@ -385,9 +421,25 @@ class LampEngine:
         self._layer_val = np.zeros((L,), np.float64)
         self.layer_rate_series = deque(maxlen=econfig.obs.series_capacity)
         # live per-layer LAMP thresholds, read by the kernel from device
-        # memory (the static site tau; a later slice's policy moves them)
+        # memory: the static site tau, moved in place by the policy loop
         self.taus = torch.full((L,), float(cfg.lamp.kq.tau),
                                dtype=torch.float32, device=self.device)
+        # -- adaptive policy loop: the rule tier it degraded to (None = the
+        # base rule) and the controller (None when disabled)
+        self._active_rule: Optional[str] = None
+        self._last_step_wall = 0.0
+        self.policy: Optional[PolicyController] = None
+        if econfig.policy.enabled:
+            base_rule = cfg.lamp.kq.rule
+            if base_rule == "random":   # serving maps the control arm
+                base_rule = "strict"
+            self.policy = PolicyController(
+                econfig.policy, L,
+                np.full((L,), float(cfg.lamp.kq.tau), np.float32),
+                base_rule=base_rule,
+                base_draft_len=(econfig.draft_len if econfig.speculative
+                                else 0),
+                obs=self.obs)
 
         # -- fault tolerance: the deterministic injector (None when
         # disabled), the rows the health guard pulled out of this step, and
@@ -539,12 +591,16 @@ class LampEngine:
         (successfully or -- with `RequestOutput.error` set -- failed)."""
         if self._start is None:
             self._start = self._now()
+        t0 = self._now()
         step_id = self.total_steps
         inj = self.faults
         if inj is not None and inj.maybe_stall(step_id):
-            # injected stall: the step schedules nothing, so the
-            # run_to_completion watchdog sees no progress (the stall's
-            # stall_s latency feeds only the policy loop, not ported yet)
+            # injected stall: the step schedules nothing and reports the
+            # configured latency spike, so the policy sees the pressure and
+            # the run_to_completion watchdog sees no progress
+            self._last_step_wall = inj.config.stall_s
+            if self.policy is not None:
+                self._policy_update()
             return self._drain_failures()
         if self._has_deadlines:
             self._expire_deadlines()
@@ -597,7 +653,59 @@ class LampEngine:
         done.extend(self._drain_failures())
         if self.econfig.paranoid:
             self.pool.check_invariants(self._seqs.values())
+        self._last_step_wall = self._now() - t0
+        if self.policy is not None:
+            self._policy_update()
         return done
+
+    # -- adaptive policy loop -----------------------------------------------
+
+    def _serving_cfg(self):
+        """The model config the next step runs with: the base config,
+        unless the policy degraded the LAMP rule tier (the kernel is then
+        launched with that tier's rule; tau and draft-length moves change
+        no config)."""
+        rule = self._active_rule
+        if rule is None or not self.cfg.lamp.kq.enabled \
+                or rule == self.cfg.lamp.kq.rule:
+            return self.cfg
+        cfg = self._cfg_cache.get(rule)
+        if cfg is None:
+            pol = self.cfg.lamp
+            cfg = self.cfg.replace(
+                lamp=pol.replace(kq=pol.kq.replace(rule=rule)))
+            self._cfg_cache[rule] = cfg
+        return cfg
+
+    def _policy_update(self) -> None:
+        """Feed this step's telemetry to the controller and apply what it
+        actuated: the per-layer thresholds (written in place into `taus`,
+        the device tensor the kernel reads), the scheduler's draft budget
+        and -- only under SHED -- the rule tier."""
+        # _account_lamp stamps an entry with the step count before the step
+        # counter increments, so the entry this step produced reads
+        # total_steps - 1; an older one means this step had no LAMP counts
+        # and the controller holds its EMA
+        rates = None
+        if (self.layer_rate_series
+                and self.layer_rate_series[-1][0] == self.total_steps - 1):
+            rates = self.layer_rate_series[-1][1]
+        drafted = self.spec_drafted
+        sig = PolicySignals(
+            layer_rates=rates,
+            utilization=self.pool.utilization,
+            preemptions=self.scheduler.num_preemptions,
+            step_latency_s=self._last_step_wall,
+            spec_acceptance=(self.spec_accepted / drafted
+                             if drafted else 0.0),
+            recoveries=self.recoveries)
+        act = self.policy.update(sig)
+        if self.policy.config.frozen:
+            return
+        self.taus.copy_(torch.from_numpy(np.asarray(act.taus, np.float32)))
+        self._active_rule = act.rule
+        if self.econfig.speculative:
+            self.scheduler.spec_draft_len = act.draft_len
 
     def _batch_arrays(self, seqs: List[Sequence], Bb: int):
         bt = np.zeros((Bb, self.blocks_per_seq), np.int32)
@@ -640,7 +748,13 @@ class LampEngine:
         (keyed as the JAX engine keys its jitted functions: model config,
         LAMP flag, attention path, draft length, top-k variant) at bucket
         `shape`: the port's compile event. Marks the key as run."""
-        key = (fn, self._step_key, self.econfig.draft_len
+        rule = self._active_rule
+        model = self._step_keys.get(rule)
+        if model is None:
+            model = self._step_keys[rule] = hash(
+                (self._serving_cfg(), self.econfig.use_lamp,
+                 self.econfig.kernel))
+        key = (fn, model, self.econfig.draft_len
                if fn in ("draft", "verify", "mixed_spec") else 0,
                bool(topks.any()), shape)
         if key in _STEP_KEYS:
@@ -816,7 +930,7 @@ class LampEngine:
 
     def _retry_ladder(self) -> List[tuple]:
         return retry_ladder(self.cfg, self.econfig,
-                            self.device.type == "cuda")
+                            self.device.type == "cuda", self._serving_cfg())
 
     def _retry_row(self, seq: Sequence, kind: str, window: int,
                    rcfg, rlamp: bool, rkernel: str) -> bool:
@@ -965,7 +1079,7 @@ class LampEngine:
         on the device, and the span (for a compile event's wall time)."""
         tok0, lengths, kdv, bt, seeds, counts, temps, topks = bucket
         with self.obs.span("draft", rows=rows, bucket=[len(tok0)]) as sp:
-            out = SP.draft(self.cfg, self.params,
+            out = SP.draft(self._serving_cfg(), self.params,
                            {"k": self.pool.k, "v": self.pool.v},
                            self._dev(bt), self._dev(lengths), self._dev(tok0),
                            kdv, self.spec_config,
@@ -1029,7 +1143,7 @@ class LampEngine:
                 rows = torch.as_tensor(dec_rows, device=self.device)
                 tokens_t[rows, 1:k + 1] = d_toks[:len(dec_rows)].to(torch.int32)
             logits, _, (nsel, nval) = transformer.paged_mixed_step(
-                self.cfg, self.params, tokens_t,
+                self._serving_cfg(), self.params, tokens_t,
                 {"k": self.pool.k, "v": self.pool.v}, self._dev(bt),
                 self._dev(starts), self._dev(qlens),
                 use_lamp=self.econfig.use_lamp, kernel=self.econfig.kernel,
@@ -1120,7 +1234,7 @@ class LampEngine:
         with self.obs.span("prefill", rows=len(seqs), bucket=[Bb, Wb],
                            tokens=int(sum(windows))) as sp:
             logits, _, (nsel, nval) = transformer.paged_prefill_window(
-                self.cfg, self.params, self._dev(tokens),
+                self._serving_cfg(), self.params, self._dev(tokens),
                 {"k": self.pool.k, "v": self.pool.v}, self._dev(bt),
                 self._dev(starts), self._dev(lengths),
                 use_lamp=self.econfig.use_lamp, kernel=self.econfig.kernel,
@@ -1155,7 +1269,7 @@ class LampEngine:
         first = self._first_run("decode", (Rb,), topks)
         with self.obs.span("decode", rows=len(seqs), bucket=[Rb]) as sp:
             logits, _, (nsel, nval) = transformer.paged_decode_step(
-                self.cfg, self.params, {"k": self.pool.k, "v": self.pool.v},
+                self._serving_cfg(), self.params, {"k": self.pool.k, "v": self.pool.v},
                 self._dev(bt), self._dev(lengths), self._dev(tok0[:, None]),
                 use_lamp=self.econfig.use_lamp, kernel=self.econfig.kernel,
                 per_layer=True, taus=self.taus)
@@ -1194,7 +1308,7 @@ class LampEngine:
         d_toks = self._inject_draft(seqs, kd, d_toks, d_logits.shape[-1])
         with self.obs.span("verify", rows=len(seqs), bucket=[Rb]) as spv:
             emit, n_acc, health, nsel, nval = SP.verify(
-                self.cfg, self.params, {"k": self.pool.k, "v": self.pool.v},
+                self._serving_cfg(), self.params, {"k": self.pool.k, "v": self.pool.v},
                 self._dev(bt), self._dev(lengths), self._dev(tok0), d_toks,
                 d_logits, kd, self.spec_config, use_lamp=self.econfig.use_lamp,
                 kernel=self.econfig.kernel, taus=self.taus, seeds=seeds,
@@ -1372,9 +1486,10 @@ class LampEngine:
             "verify_recompute_rate": (self.spec_verify_selected
                                       / self.spec_verify_valid
                                       if self.spec_verify_valid else 0.0),
-            # the JAX engine's policy and audit keys: this engine has
-            # neither part yet
-            "policy": {"enabled": False},
+            # adaptive policy loop (serving/policy.py)
+            "policy": (self.policy.stats() if self.policy is not None
+                       else {"enabled": False}),
+            # the JAX engine's shadow-audit key: this engine has no audit
             "audit": {"enabled": False},
             # fault tolerance (serving/faults.py + the recovery ladder)
             "recoveries": self.recoveries,

@@ -1,55 +1,150 @@
 """Per-row token sampling for the engine (port of
-``repro/serving/sampling.py:38-41,54,86,111,122``).
+``repro/serving/sampling.py:38-41,54,70,86,111,122``).
 
 Greedy rows (temperature <= 0) take the argmax, the first index among ties,
-exactly as the JAX package does. A sampled row draws Gumbel noise from its
-own ``torch.Generator``, seeded from (request seed, tokens generated so
-far, salt) only, so a request's stream is deterministic whatever the
-batching, bucketing or preemption. The bits are not JAX's threefry bits:
-sampled streams match the JAX engine's in distribution, not token for
-token.
+exactly as the JAX package does. A sampled row adds Gumbel noise keyed on
+(request seed, tokens generated so far, salt) only, so a request's stream
+is deterministic whatever the batching, bucketing or preemption, and the
+noise is the JAX engine's own:
+
+  * ``row_key`` is ``fold_in(PRNGKey(seed), count)``, then
+    ``fold_in(·, salt)`` unless the salt is SALT_SAMPLE: threefry2x32 (20
+    rounds, JAX's key schedule) on 32-bit words. Seeds are 32-bit, as the
+    JAX engine's int32 seed arrays are (``PRNGKey`` of a seed s is the key
+    (0, s mod 2^32) with 64-bit types off).
+  * The noise for a shape is JAX's partitionable random bits
+    (``jax_threefry_partitionable``, on by default): element i of the
+    flattened shape hashes the counter words (i >> 32, i mod 2^32) under
+    the row's key, and its 32 bits are the two output words xor-ed.
+  * A uniform in [minval, 1) is ``jax.random.uniform``'s: the bits shifted
+    right by 9 under the exponent of 1.0, bitcast, minus 1, scaled by
+    (1 - minval), plus minval, and raised to at least minval. Gumbel noise
+    is ``-log(-log(u))`` with minval the smallest normal float32 (JAX's
+    mode "low").
+
+The uniforms are JAX's bit for bit; the Gumbel values are as close as
+torch's ``log`` is to XLA's (within 2 ulp). Keys are hashed on the host in
+numpy (a few words a row); the noise of all sampled rows is one batched
+computation on the logits' device in int64 tensors holding 32-bit words.
 
 Salts: speculative decoding draws several independent values per position
 (draft proposal, acceptance coin, residual resample); each folds its own
-salt into the generator seed, and salt 0 is the plain sampler.
+salt into the key, and salt 0 is the plain sampler.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-_MASK64 = (1 << 64) - 1
-
-# generator salts (0 = the plain sampler)
+# key salts (folded after the position counter; 0 = the plain sampler)
 SALT_SAMPLE = 0
 SALT_DRAFT = 1
 SALT_ACCEPT = 2
 SALT_RESIDUAL = 3
 
-
-def _splitmix64(z: int) -> int:
-    z = (z + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return z ^ (z >> 31)
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_TINY = float(np.finfo(np.float32).tiny)
 
 
-def row_seed(seed: int, count: int, salt: int = SALT_SAMPLE) -> int:
-    """splitmix64 of (seed, count), then of the salt unless it is
-    SALT_SAMPLE: the per-row generator seed."""
-    z = _splitmix64((int(seed) & 0xFFFFFFFF) << 32 | (int(count) & 0xFFFFFFFF))
+def threefry2x32(k0, k1, x0, x1):
+    """The threefry2x32 hash of JAX (``jax._src.prng``, 20 rounds) of the
+    counter words (x0, x1) under the key (k0, k1). Works on numpy uint32
+    arrays and on torch int64 tensors holding 32-bit values (the operands
+    broadcast); returns (y0, y1) of the same kind."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) & _M32) | (x1 >> (32 - r))
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def _words(a) -> np.ndarray:
+    """Integers as uint32 words (two's complement, mod 2^32)."""
+    return (np.asarray(a, np.int64) & _M32).astype(np.uint32)
+
+
+def fold_in(key: Tuple[np.ndarray, np.ndarray], data) -> Tuple[np.ndarray,
+                                                               np.ndarray]:
+    """``jax.random.fold_in`` on keys given as two uint32 word arrays:
+    the key hashes the counter words (0, data)."""
+    d = _words(data)
+    return threefry2x32(key[0], key[1], np.zeros_like(d), d)
+
+
+def row_key(seed, count, salt: int = SALT_SAMPLE):
+    """The engine's per-request keys (JAX ``sampling.row_key``), vectorized:
+    ``fold_in(PRNGKey(seed), count)``, then the salt unless it is
+    SALT_SAMPLE. seed and count broadcast; returns the keys' two uint32
+    words."""
+    seed, count = np.broadcast_arrays(np.asarray(seed, np.int64),
+                                      np.asarray(count, np.int64))
+    k1 = _words(seed.reshape(-1))      # flat: numpy wraps arrays silently
+    key = fold_in((np.zeros_like(k1), k1), count.reshape(-1))
     if salt != SALT_SAMPLE:
-        z = _splitmix64(z ^ int(salt))
-    return z & ((1 << 63) - 1)
+        key = fold_in(key, np.full(k1.shape, salt))
+    return key[0].reshape(seed.shape), key[1].reshape(seed.shape)
 
 
-def _generator(device, seed: int, count: int, salt: int) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(row_seed(seed, count, salt))
-    return gen
+def _bits(key, n: int, device) -> torch.Tensor:
+    """JAX's partitionable 32-bit random bits for a flat shape of n under
+    each of R keys: (R, n) int64 on `device`."""
+    k0 = torch.from_numpy(key[0].astype(np.int64)).to(device)[:, None]
+    k1 = torch.from_numpy(key[1].astype(np.int64)).to(device)[:, None]
+    i = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    y0, y1 = threefry2x32(k0, k1, i >> 32, i & _M32)
+    return y0 ^ y1
+
+
+def _uniform(bits: torch.Tensor, minval: float) -> torch.Tensor:
+    """``jax.random.uniform`` in [minval, 1) from 32 random bits, float32:
+    mantissa bits under the exponent of 1.0, minus 1, scaled, shifted."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    return torch.maximum(lo, f * (1.0 - lo) + lo)
+
+
+def row_uniform(seeds, counts, salt: int, shape, device="cpu",
+                minval: float = 0.0) -> torch.Tensor:
+    """One ``jax.random.uniform(row_key(seed, count, salt), shape)`` per
+    row, minval as JAX's: (R, *shape) float32 on `device`."""
+    shape = tuple(shape)
+    key = row_key(np.asarray(seeds).reshape(-1), np.asarray(counts).reshape(-1),
+                  salt)
+    n = int(np.prod(shape, dtype=np.int64))
+    return _uniform(_bits(key, n, device), minval).reshape((-1,) + shape)
+
+
+def row_gumbel(seeds: Sequence[int], counts: Sequence[int], salt: int,
+               shape, device="cpu") -> torch.Tensor:
+    """One ``jax.random.gumbel(row_key(seed, count, salt), shape)`` per row
+    (mode "low"): the speculative residual resample and the sampler's
+    noise. Returns (R, *shape) float32 on `device`."""
+    u = row_uniform(seeds, counts, salt, shape, device, minval=_TINY)
+    return -torch.log(-torch.log(u))
+
+
+def row_uniforms(seeds: Sequence[int], counts, salt: int,
+                 device="cpu") -> torch.Tensor:
+    """One uniform draw per (row, count), keyed on (seed, count, salt): the
+    speculative acceptance coins (JAX ``row_uniforms``). counts: (R,) or
+    (R, k) host integers; returns float32 of counts' shape on `device`.
+    A few values: computed on the host and copied once, rather than about
+    170 small launches on the device."""
+    counts = np.asarray(counts, np.int64)
+    seeds = np.asarray(seeds, np.int64).reshape((-1,) + (1,) * (counts.ndim - 1))
+    seeds = np.broadcast_to(seeds, counts.shape)
+    return row_uniform(seeds, counts, salt, (), "cpu").reshape(
+        counts.shape).to(device)
 
 
 def apply_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
@@ -76,48 +171,28 @@ def apply_top_k_rows(logits: torch.Tensor, top_k) -> torch.Tensor:
     return torch.where(on, filtered, logits)
 
 
-def _gumbel(shape, gen: torch.Generator, device) -> torch.Tensor:
-    u = torch.rand(shape, generator=gen, device=device)
-    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
-
-
 def sample_rows(logits: torch.Tensor, seeds: Sequence[int],
                 counts: Sequence[int], temps: Sequence[float],
                 top_k: Optional[Sequence[int]] = None,
                 salt: int = SALT_SAMPLE) -> torch.Tensor:
     """logits (R, V) on any device; seeds, counts, temps and top_k are host
-    sequences of length R. Returns (R,) int64 token ids on logits' device."""
+    sequences of length R. Returns (R,) int64 token ids on logits' device:
+    greedy rows the argmax (JAX's ``where(t > 0, ..., argmax)`` gives the
+    same token, so their noise is not drawn), sampled rows the argmax of
+    the (top-k filtered) logits over max(t, 1e-6) plus the row's Gumbel
+    noise, as JAX's ``_gumbel_argmax``."""
     out = torch.argmax(logits, dim=-1)
-    for i in range(logits.shape[0]):
-        t = float(temps[i])
-        if t <= 0:
-            continue
-        lg = logits[i].float()
-        if top_k is not None:
-            lg = apply_top_k(lg, int(top_k[i]))
-        gen = _generator(logits.device, seeds[i], counts[i], salt)
-        out[i] = torch.argmax(lg / max(t, 1e-6)
-                              + _gumbel(lg.shape, gen, logits.device))
+    temps = np.asarray(temps, np.float32)
+    rows = np.flatnonzero(temps > 0)
+    if rows.size == 0:
+        return out
+    dev = logits.device
+    idx = torch.from_numpy(rows).to(dev)
+    lg = logits[idx].float()
+    if top_k is not None:
+        lg = apply_top_k_rows(lg, np.asarray(top_k)[rows])
+    t = torch.from_numpy(np.maximum(temps[rows], np.float32(1e-6))).to(dev)
+    g = row_gumbel(np.asarray(seeds)[rows], np.asarray(counts)[rows], salt,
+                   (lg.shape[-1],), dev)
+    out[idx] = torch.argmax(lg / t[:, None] + g, dim=-1)
     return out
-
-
-def row_uniforms(seeds: Sequence[int], counts, salt: int,
-                 device="cpu") -> torch.Tensor:
-    """One uniform draw per (row, count), keyed on (seed, count, salt): the
-    speculative acceptance coins. counts: (R,) or (R, k) host integers."""
-    counts = np.asarray(counts)
-    out = torch.empty(counts.shape, dtype=torch.float32)
-    for idx in np.ndindex(*counts.shape):
-        gen = _generator("cpu", seeds[idx[0]], int(counts[idx]), salt)
-        out[idx] = torch.rand((), generator=gen)
-    return out.to(device)
-
-
-def row_gumbel(seeds: Sequence[int], counts: Sequence[int], salt: int,
-               shape, device="cpu") -> torch.Tensor:
-    """One Gumbel tensor of `shape` per row, keyed on (seed, count, salt):
-    the speculative residual resample. Returns (R, *shape)."""
-    return torch.stack([
-        _gumbel(shape, _generator(device, s, int(c), salt), device)
-        for s, c in zip(seeds, counts)])

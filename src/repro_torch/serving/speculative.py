@@ -16,9 +16,9 @@ Acceptance is the standard rule (Leviathan et al. '23): greedy rows accept
 a draft while it equals the verifier's argmax, so their tokens are those
 of plain decoding; sampled rows accept d ~ q with probability
 min(1, p(d)/q(d)) and resample a rejection from norm(max(p - q, 0)).
-Draws come from per-row generators keyed on (request seed, position,
-salt), so sampled streams match the JAX engine's in distribution, not in
-bits. Rows whose budget kd is below draft_len freeze their draft cursor:
+Draws are the JAX engine's threefry draws keyed on (request seed,
+position, salt) (``sampling.row_key``): the proposals SALT_DRAFT, the
+acceptance coins SALT_ACCEPT, the residual resample SALT_RESIDUAL. Rows whose budget kd is below draft_len freeze their draft cursor:
 frozen steps rewrite the same tail position with the same token, and the
 verifier masks everything past kd + 1.
 

@@ -109,7 +109,7 @@ def test_engine_replays_jax_plan_stream(model, n_blocks):
 
 
 def test_engine_samples_deterministically(model):
-    """Sampled streams use per-row torch generators keyed on (seed, count):
+    """Sampled streams draw noise keyed on (seed, count) (JAX's threefry keys):
     the same request gives the same tokens whatever it is batched with."""
     _, cfg, _, tparams = model
     prompt = list(range(5, 17))

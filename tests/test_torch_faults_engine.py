@@ -16,9 +16,9 @@ by `_retry_ladder()` (and the card's ladder by `retry_ladder(on_card=True)`).
 `defrag()` mid-run and a tight, preempting pool under `paranoid` give the
 JAX engine's plans, block tables and tokens.
 
-Sampled rows (temperature 0.8) draw from per-row torch generators, equal to
-JAX in distribution and not in bits; that case holds the port's tokens to
-the port's own fault-free run, and everything else to JAX. Tolerances:
+Sampled rows (temperature 0.8) draw JAX's threefry noise; that case holds
+the port's tokens to the port's own fault-free run, and everything else to
+JAX (tests/test_torch_threefry.py holds sampled tokens to JAX's). Tolerances:
 none, everything is exact.
 """
 
@@ -152,7 +152,8 @@ def test_chaos_plain_greedy(model):
 def test_chaos_plain_sampled(model):
     """Temperature 0.8: rung 0 replays the (seed, tokens generated)-keyed
     stream, so recovered rows keep the fault-free tokens; plans, faults and
-    recoveries equal JAX's (token values are not: see the docstring)."""
+    recoveries equal JAX's (sampled tokens against JAX's: see the
+    docstring)."""
     reqs = _requests(4, temperature=0.8)
     jeng, trace, jouts = _jax_run(model, reqs, CHAOS_PLAIN, stall_patience=8)
     teng, touts = _torch_run(model, reqs, trace, CHAOS_PLAIN,

@@ -3,8 +3,9 @@
   * `speculative_accept`: greedy rows emit exactly what the JAX rule emits
     on the same logits; sampled rows reproduce the target distribution
     (the accept / residual-resample property), whatever the draft
-    distribution. The port draws from per-row torch generators, so sampled
-    streams match JAX in distribution, not in bits.
+    distribution. The port draws JAX's threefry noise
+    (`sampling.row_key`); tests/test_torch_threefry.py holds sampled
+    streams to the JAX engine's token for token.
   * `SpecConfig`, `draft_model_config`, `apply_top_k_rows`,
     `PagedKVPool.rollback` (with copy-on-write of a shared tail).
   * The engine: the JAX speculative engine (fused step, gather kernel)
@@ -161,8 +162,9 @@ def test_keyed_draws_are_deterministic_and_salted():
     assert torch.equal(a, b) and not torch.equal(a, c)
     g = SM.row_gumbel([3, 4], [2, 2], SM.SALT_RESIDUAL, (7,))
     assert g.shape == (2, 7) and torch.isfinite(g).all()
-    assert SM.row_seed(3, 5) == SM.row_seed(3, 5, SM.SALT_SAMPLE)
-    assert SM.row_seed(3, 5) != SM.row_seed(3, 5, SM.SALT_DRAFT)
+    key = lambda *a: tuple(int(w) for w in SM.row_key(*a))
+    assert key(3, 5) == key(3, 5, SM.SALT_SAMPLE)
+    assert key(3, 5) != key(3, 5, SM.SALT_DRAFT)
 
 
 def test_spec_config_and_draft_config():
