@@ -119,6 +119,34 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            held to the plain version with the layer's live tau (Shadow),
            the relaxed rule served by the kernel, tau moved, every request
            finished
+  audit    the shadow audit on GPT-2 small, phase engine's stream: with
+           speculation on (fused) and every step audited, tokens must equal
+           phase engine's (the audit changes none), every step be audited,
+           the kernels' launches be what the counters predict, and the
+           lamp_audit_* registry obey the JAX rules (rows <= max_rows x
+           steps, flips <= rows, one histogram sample a row, one a
+           request), every value finite. The same with fused_step=False:
+           tokens, every step audited, the registry rules, and the audited
+           logit error and flip rate printed beside the fused run's (the
+           JAX burn-in's comparison). One captured audit batch (the
+           widest of at most 16 positions) runs through
+           transformer.paged_audit_window on the card and on the CPU with
+           the same weights and arena: each error metric within its own
+           AUDIT_BOUND, flips and top-k overlaps equal but on a row whose
+           reference logits hold a near-tie (below FLIP_GAP) at the
+           boundary the metric reads. The stream at tau 1e-4 and 0.5: the
+           audited logit error must be lower at 1e-4 (printed beside the
+           recompute rates: the accuracy-for-recompute trade). With the policy on,
+           calibrations > 0 and the policy holding the audit's targets. The
+           audit's cost: rates 0, 1 and 0.05 twice in turn, ms per step and
+           the audit span's mean (tokens gated at every rate)
+  phased   fused_step=False (the phase-segregated plans) against the fused
+           step, speculation off and on, under Shadow: greedy tokens equal
+           phase engine's, every kernel call held to the plain version, the
+           launches what the counters predict (prefill and verify windows
+           through the mixed kernel, decode and draft through the decode
+           kernel), no mixed step; launches by kind and ms per step printed
+           beside the fused run's (nothing claimed)
 
 The loud rule holds for every engine run of every phase but the ladder
 exhaustion run: no recovery through the gather or FP32 rung (they run the
@@ -578,13 +606,16 @@ def make_engine(params, cfg, requests=True, **options):
     return eng
 
 
-def run_engine(params, cfg, loud=True, **options):
+def run_engine(params, cfg, loud=True, setup=None, **options):
     """Serve the stream; returns (engine, outputs, wall seconds). Each
     step's wall time is kept on `engine.step_ms` under its kind: whether it
     ran a speculative round ("spec") or not ("plain"), with prefill rows
-    ("+prefill") or without. Applies the loud rule unless `loud` is
-    False (the ladder exhaustion run only)."""
+    ("+prefill") or without. `setup(engine)` runs before the first step.
+    Applies the loud rule unless `loud` is False (the ladder exhaustion run
+    only)."""
     eng = make_engine(params, cfg, **options)
+    if setup is not None:
+        setup(eng)
     eng.step_ms = collections.defaultdict(list)
     outs = []
     torch.cuda.synchronize()
@@ -700,10 +731,11 @@ def phase_engine(params, cfg, rec):
     return launches, kt, (peng, pouts, {"any": gather_launches})
 
 
-def top2_gap(params, cfg, prompt, toks, pos):
-    """The gap between the two largest logits after prompt + toks[:pos],
-    from one prefill window on a fresh arena: how close the reference's
-    greedy choice at that position was to a tie."""
+def top2_gap(params, cfg, prompt, toks, pos, k=1):
+    """The gap between the k-th and (k+1)-th largest logits (k=1: the top
+    two) after prompt + toks[:pos], from one prefill window on a fresh
+    arena: how close the reference's greedy choice (its top-k set) at that
+    position was to a tie."""
     from repro_torch.models import transformer as TT
     seq = list(prompt) + list(toks[:pos])
     n = len(seq)
@@ -716,8 +748,8 @@ def top2_gap(params, cfg, prompt, toks, pos):
             arena, torch.arange(1, nb + 1, dtype=torch.int32, device=dev)[None],
             torch.zeros(1, dtype=torch.int32, device=dev),
             torch.tensor([n], dtype=torch.int32, device=dev))
-    top = torch.topk(logits[0, -1], 2).values
-    return float(top[0] - top[1])
+    top = torch.topk(logits[0, -1], k + 1).values
+    return float(top[k - 1] - top[k])
 
 
 def first_difference(got, want):
@@ -1713,6 +1745,315 @@ def phase_policy(params, cfg):
     require(all(checks.values()), f"policy phase failed its checks: {checks}")
 
 
+# The audit's card-against-CPU check. Both runs are the same PyTorch code
+# (the gather path, core.attention in the "dot_ps" order) on the same
+# weights and arena, but cuBLAS and the CPU's BLAS sum the FP32 matmuls in
+# other orders: the q, k and v of each layer differ in their last bits, and
+# under the strict rule a logit on the threshold can be selected on one
+# device and not the other, which moves that logit between its PS(7) and
+# FP32 values (up to 2^-8 of it). Twelve layers carry both. Each metric has
+# its own absolute bound, from its readings on the captured batch (H100
+# 80GB HBM3, 700 W; bit-equal in three runs): kq_err 6.1e-7, cum_err 2.9e-6,
+# logit_rel 1.4e-5 and logit_max_abs 2.1e-4, on values of 4.5e-4 to 5.2e-3,
+# 2.0e-3 to 5.1e-3, 1.5e-3 to 2.9e-3 and 3.5e-3 to 7.0e-3; router_err is 0
+# on a dense model. The bounds leave 2.4-16x room above those readings and
+# stay below a seventh of the smallest value each metric takes there (below
+# a thirtieth but for logit_max_abs), so a card result off by that much
+# fails. Flips and top-k overlaps are equal except on a row whose reference
+# logits hold a near-tie at the boundary they read (the top two for the
+# flip, the k-th and (k+1)-th for top-k) of less than FLIP_GAP logit units.
+AUDIT_BOUND = {"kq_err": 1e-5, "router_err": 0.0, "cum_err": 3e-5,
+               "logit_rel": 5e-5, "logit_max_abs": 5e-4}
+FLIP_GAP = 1e-2
+AUDIT_METRICS = (*AUDIT_BOUND, "flip", "topk")
+
+
+def finite_tree(x) -> bool:
+    if isinstance(x, dict):
+        return all(finite_tree(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(finite_tree(v) for v in x)
+    if isinstance(x, float):
+        return bool(np.isfinite(x))
+    return True
+
+
+def audit_registry_checks(eng, outs, max_rows):
+    """The JAX rules of the lamp_audit_* registry, for a run at rate 1."""
+    a = eng.stats()["audit"]
+    snap = eng.metrics_snapshot()
+    rows, steps = a["audited_rows"], a["audited_steps"]
+    layer_err = snap["lamp_audit_layer_err_total"]
+    return {
+        "steps_counter": snap["lamp_audit_steps_total"] == steps,
+        "rows_counter": snap["lamp_audit_rows_total"] == rows,
+        "rows_bounded": steps <= rows <= max_rows * steps,
+        "flips_bounded": 0 <= snap["lamp_audit_flips_total"] <= rows,
+        "row_histograms": all(snap[n]["count"] == rows for n in (
+            "lamp_audit_logit_rel_err", "lamp_audit_logit_max_abs_err",
+            "lamp_audit_topk_overlap")),
+        "request_histogram": snap["lamp_audit_request_cum_err"]["count"]
+        == len(outs),
+        "layer_err_children": len(layer_err) == 3 * eng.cfg.n_layers,
+        "per_request": sum(o.audit_samples for o in outs) == rows
+        and all(o.audit_samples > 0 for o in outs),
+        "finite": finite_tree(a) and finite_tree(snap),
+    }
+
+
+def phase_audit(params, cfg, ref_tokens):
+    """The shadow audit on the card (module docstring)."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import AuditConfig, PolicyConfig
+    from repro_torch.serving.speculative import draft_model_config
+
+    L = cfg.n_layers
+    checks = {}
+    # 1. the engine's stream, speculation on, fused, every step audited;
+    # keep one audit batch, with the arena it ran against, for step 2: the
+    # one with the most rows among those at most 16 positions wide (the
+    # CPU re-runs it at full width)
+    kept = []
+
+    def keep(eng):
+        inner = eng._run_audit
+
+        def run_audit(batch):
+            Bb, Wb = batch["bucket"]
+            score = (Wb <= 16, Bb, Wb)
+            if not kept or score > kept[0]:
+                full = [(s.prompt + s.generated)[:int(st) + int(ln)]
+                        for s, st, ln in zip(batch["seqs"], batch["starts"],
+                                             batch["lengths"])]
+                kept[:] = [score, {k: v for k, v in batch.items()
+                                   if k != "seqs"},
+                           eng.pool.k.cpu(), eng.pool.v.cpu(),
+                           eng.taus.cpu(), eng._serving_cfg(), full]
+            return inner(batch)
+        eng._run_audit = run_audit
+
+    audit_all = AuditConfig(rate=1.0)
+    PA._wrapper.launches = PA._decode_wrapper.launches = 0
+    eng, outs, wall = run_engine(params, cfg, setup=keep, speculative=True,
+                                 draft_len=SPEC_DRAFT_LEN, audit=audit_all)
+    mix_l, dec_l = PA._wrapper.launches, PA._decode_wrapper.launches
+    a = eng.stats()["audit"]
+    lc = eng.launch_counts
+    site = TT._kq_site(cfg, True)
+    dsite = TT._kq_site(draft_model_config(cfg), True)
+    exp_mix = (lc["mixed"] + lc["prefill"] + lc["verify"]) * L * PA.passes(site)
+    exp_dec = lc["draft"] * SPEC_DRAFT_LEN * L * PA.passes(dsite)
+    toks = {o.req_id: o.tokens for o in outs}
+    checks["tokens_equal_phase_engine"] = toks == ref_tokens
+    checks["every_step_audited"] = (a["audited_steps"] == eng.total_steps
+                                    == lc["audit"] > 0)
+    checks["kernels_launched"] = mix_l == exp_mix > 0 and dec_l == exp_dec > 0
+    reg = audit_registry_checks(eng, outs, audit_all.max_rows)
+    checks.update({f"registry_{k}": v for k, v in reg.items()})
+    phase = eng.stats()["phase"]
+    stream = {"steps": eng.total_steps, "audited_rows": a["audited_rows"],
+              "flip_rate": a["flip_rate"], "logit_rel_err": a["logit_rel_err"],
+              "layer_kq_err": a["layer_kq_err"],
+              "layer_cum_err": a["layer_cum_err"],
+              "lamp_recompute_rate": eng.stats()["lamp_recompute_rate"],
+              "ms_per_step": 1e3 * wall / eng.total_steps,
+              "audit_span_mean_ms": phase["audit"]["mean_us"] / 1e3,
+              "mixed_kernel_launches": mix_l, "decode_kernel_launches": dec_l,
+              "launches_by_fn": lc}
+
+    # 1b. the same stream with the phase-segregated plans: the audited
+    # error fused against phased, the JAX burn-in's comparison
+    e, o, w = run_engine(params, cfg, speculative=True,
+                         draft_len=SPEC_DRAFT_LEN, audit=audit_all,
+                         fused_step=False)
+    pa = e.stats()["audit"]
+    checks["phased_tokens_equal_phase_engine"] = {
+        x.req_id: x.tokens for x in o} == ref_tokens
+    checks["phased_every_step_audited"] = (
+        pa["audited_steps"] == e.total_steps == e.launch_counts["audit"] > 0
+        and e.mixed_steps == 0)
+    reg = audit_registry_checks(e, o, audit_all.max_rows)
+    checks.update({f"phased_registry_{k}": v for k, v in reg.items()})
+    fused_phased = {
+        name: {"steps": x.total_steps, "audited_rows": y["audited_rows"],
+               "logit_rel_err": y["logit_rel_err"], "flip_rate": y["flip_rate"],
+               "layer_cum_err": y["layer_cum_err"],
+               "request_err_sum": {r.req_id: r.audit_err_sum for r in z},
+               "request_samples": {r.req_id: r.audit_samples for r in z}}
+        for name, x, y, z in (("fused", eng, a, outs), ("phased", e, pa, o))}
+    print("audit fused vs phased (logit rel err, flip rate, rows): " +
+          "  ".join(f"{k}: {v['logit_rel_err']:.4e}, {v['flip_rate']:.4f}, "
+                    f"{v['audited_rows']}" for k, v in fused_phased.items()),
+          flush=True)
+
+    # 2. one captured batch through the shadow forward on the card and on
+    # the CPU, on the same weights and arena
+    _, b, hk, hv, htaus, scfg, full = kept
+    dev = torch.device(DEVICE)
+    args = [torch.from_numpy(b[n]) for n in ("tokens", "bt", "starts",
+                                             "lengths", "row_mask")]
+    with torch.no_grad():
+        card = TT.paged_audit_window(
+            scfg, params, args[0].to(dev), {"k": hk.to(dev), "v": hv.to(dev)},
+            *[t.to(dev) for t in args[1:]], taus=htaus.to(dev),
+            top_k=audit_all.top_k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cpu_params = TT.map_params(params, lambda t: t.cpu())
+        host = TT.paged_audit_window(scfg, cpu_params, args[0],
+                                     {"k": hk, "v": hv}, *args[1:],
+                                     taus=htaus, top_k=audit_all.top_k)
+        cpu_s = time.perf_counter() - t0
+    del cpu_params
+    live = int(b["row_mask"].sum())
+    diffs, values, apart = {}, {}, []
+    ok = True
+    for name in AUDIT_METRICS:
+        c, h = card[name].cpu().numpy(), host[name].numpy()
+        if c.shape[0] != L:
+            c, h = c[:live], h[:live]
+        ok = ok and bool(np.all(np.isfinite(c)))
+        d = np.abs(c - h)
+        diffs[name] = float(d.max())
+        values[name] = [float(np.abs(h).min()), float(np.abs(h).max())]
+        if name in AUDIT_BOUND:
+            ok = ok and bool(np.all(d <= AUDIT_BOUND[name]))
+            continue
+        k = 1 if name == "flip" else audit_all.top_k
+        for r in np.nonzero(c != h)[0]:
+            gap = top2_gap(params, cfg, full[r][:-1], full[r][-1:], 1, k=k)
+            apart.append({"metric": name, "row": int(r), "gap": gap})
+            ok = ok and gap < FLIP_GAP
+    checks["card_equals_cpu"] = ok
+    card_cpu = {"bucket": list(b["bucket"]), "rows": live,
+                "max_abs_diff": diffs, "cpu_value_range": values,
+                "rows_apart": apart,
+                "bounds": AUDIT_BOUND, "flip_gap": FLIP_GAP, "cpu_s": cpu_s}
+
+    # 3. the accuracy-for-recompute trade: the stream at tau 1e-4 and 0.5
+    sweep = {}
+    for tau in (1e-4, 0.5):
+        kq = cfg.lamp.kq.replace(tau=tau)
+        tcfg = cfg.replace(lamp=cfg.lamp.replace(kq=kq))
+        e, o, w = run_engine(params, tcfg, audit=audit_all)
+        sa = e.stats()
+        sweep[str(tau)] = {"logit_rel_err": sa["audit"]["logit_rel_err"],
+                           "flip_rate": sa["audit"]["flip_rate"],
+                           "layer_kq_err": sa["audit"]["layer_kq_err"],
+                           "lamp_recompute_rate": sa["lamp_recompute_rate"],
+                           "audited_steps": sa["audit"]["audited_steps"]}
+        checks[f"tau_{tau}_finite"] = finite_tree(sa["audit"])
+    checks["error_lower_at_small_tau"] = (
+        sweep["0.0001"]["logit_rel_err"] < sweep["0.5"]["logit_rel_err"])
+    print("audit trade (tau: logit rel err at recompute rate): " + "  ".join(
+        f"{t}: {s['logit_rel_err']:.3e} at {s['lamp_recompute_rate']:.4f}"
+        for t, s in sweep.items()), flush=True)
+
+    # 4. calibration into a live policy
+    e, o, w = run_engine(params, cfg, audit=audit_all, policy=PolicyConfig(
+        enabled=True, target_rate=0.05))
+    pa, pp = e.stats()["audit"], e.stats()["policy"]
+    checks["calibrated"] = pa["calibrations"] > 0
+    checks["policy_holds_audit_targets"] = (
+        pp["targets"] == pa.get("targets")
+        and pp["target_updates"] == pa["calibrations"])
+    calib = {"calibrations": pa["calibrations"], "targets": pa.get("targets"),
+             "relax_ok": pa.get("relax_ok"), "policy_targets": pp["targets"],
+             "policy_mode": pp["mode"], "tau_mean": pp["tau_mean"]}
+
+    # 5. what the audit costs: the stream at rates 0, 1 and 0.05, twice in
+    # turn; the audit span's mean beside the step's
+    cost = []
+    for _ in range(2):
+        for rate in (0.0, 1.0, 0.05):
+            e, o, w = run_engine(params, cfg, audit=AuditConfig(rate=rate))
+            ph = e.stats()["phase"]
+            cost.append({"rate": rate, "steps": e.total_steps,
+                         "audited_steps": (e.stats()["audit"]["audited_steps"]
+                                           if rate else 0),
+                         "ms_per_step": 1e3 * w / e.total_steps,
+                         "audit_span_mean_ms": (ph["audit"]["mean_us"] / 1e3
+                                                if "audit" in ph else 0.0),
+                         "tokens_equal": {x.req_id: x.tokens for x in o}
+                         == ref_tokens})
+            checks[f"rate_{rate}_tokens_equal"] = cost[-1]["tokens_equal"]
+    print("audit cost (rate: ms/step, audit span ms): " + "  ".join(
+        f"{c['rate']}: {c['ms_per_step']:.2f}, {c['audit_span_mean_ms']:.2f}"
+        for c in cost), flush=True)
+    emit("audit", stream=stream, fused_vs_phased=fused_phased,
+         card_vs_cpu=card_cpu, tau_sweep=sweep,
+         calibration=calib, cost=cost, checks=checks,
+         ok=all(checks.values()))
+    require(all(checks.values()), f"audit phase failed its checks: {checks}")
+
+
+def phase_phased(params, cfg, ref_tokens):
+    """fused_step=False against the fused step (module docstring)."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving.speculative import draft_model_config
+
+    L = cfg.n_layers
+    site = TT._kq_site(cfg, True)
+    dsite = TT._kq_site(draft_model_config(cfg), True)
+    checks, runs = {}, {}
+    for spec in (False, True):
+        opts = dict(speculative=spec, draft_len=SPEC_DRAFT_LEN) if spec else {}
+        for fused in (True, False):
+            name = f"{'spec' if spec else 'plain'}_{'fused' if fused else 'phased'}"
+            eng, outs, wall, shadow, cl = shadow_run(params, cfg,
+                                                     fused_step=fused, **opts)
+            lc = eng.launch_counts
+            exp_mix = ((lc["mixed"] + lc["prefill"] + lc["verify"]) * L
+                       * PA.passes(site))
+            exp_dec = (lc["draft"] * SPEC_DRAFT_LEN * L * PA.passes(dsite)
+                       + lc["decode"] * L * PA.passes(site))
+            s = eng.stats()
+            runs[name] = {"steps": eng.total_steps,
+                          "prefill_steps": s["prefill_steps"],
+                          "decode_steps": s["decode_steps"],
+                          "spec_rounds": s["spec_rounds"],
+                          "launches_by_fn": lc, "kernel_launches": cl,
+                          "expected": {"mixed": exp_mix, "decode": exp_dec},
+                          "shadow": shadow_line(shadow)}
+            checks[f"{name}_tokens"] = {o.req_id: o.tokens
+                                        for o in outs} == ref_tokens
+            checks[f"{name}_launches"] = (cl["mixed"] == exp_mix > 0
+                                          and cl["decode"] == exp_dec)
+            checks[f"{name}_every_call_held"] = (shadow.apart == 0
+                                                 and shadow.calls > 0)
+            if not fused:
+                checks[f"{name}_segregated"] = (
+                    eng.mixed_steps == 0 and lc["prefill"] > 0
+                    and (lc["verify"] if spec else lc["decode"]) > 0
+                    and cl["decode"] > 0)
+    # time both plans without the Shadow's plain re-runs, in turns
+    # (fused, phased, phased, fused), spec off and on
+    timing = collections.defaultdict(list)
+    for spec in (False, True):
+        opts = dict(speculative=spec, draft_len=SPEC_DRAFT_LEN) if spec else {}
+        for fused in (True, False, False, True):
+            name = f"{'spec' if spec else 'plain'}_{'fused' if fused else 'phased'}"
+            eng, outs, wall = run_engine(params, cfg, fused_step=fused, **opts)
+            timing[name].append({
+                "steps": eng.total_steps, "wall_s": wall,
+                "ms_per_step": 1e3 * wall / eng.total_steps,
+                "tokens_per_s": eng.generated_tokens / wall,
+                "step_ms": step_breakdown(eng)})
+            checks[f"{name}_timed_tokens"] = checks.get(
+                f"{name}_timed_tokens", True) and {
+                    o.req_id: o.tokens for o in outs} == ref_tokens
+    med = {k: statistics.median(t["ms_per_step"] for t in v)
+           for k, v in timing.items()}
+    print("phased (median ms/step fused -> phased): " + "  ".join(
+        f"{k}: {med[k + '_fused']:.2f} -> {med[k + '_phased']:.2f}"
+        for k in ("plain", "spec")), flush=True)
+    emit("phased", runs=runs, timing=timing, checks=checks,
+         ok=all(checks.values()))
+    require(all(checks.values()), f"phased phase failed its checks: {checks}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_device()
@@ -1738,6 +2079,8 @@ def main() -> int:
     del dense
     phase_sampled(params, cfg)
     phase_policy(params, cfg)
+    phase_audit(params, cfg, ref_tokens)
+    phase_phased(params, cfg, ref_tokens)
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows + micro_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,19 @@ Policy: `--policy` turns on the adaptive LAMP policy loop (per-layer tau
 toward `--target-recompute-rate`, degrading draft length and rule tier
 under pool pressure or a missed `--latency-slo`); the summary gains a
 `[serve] policy:` line and `--metrics-every` lines show its mode.
+
+Engine: `--block-size`, `--n-blocks` (0 sizes the pool from the model
+length), `--max-model-len` (0: the longest request + 8),
+`--max-prefill-tokens` (the prefill step's token budget, the chunk size),
+`--[no-]prefix-cache`, `--[no-]chunked-prefill` and `--[no-]fused`
+(`--no-fused`: the phase-segregated prefill / decode plans).
+
+Audit: `--audit-rate R` shadow-audits that fraction of steps (replays the
+sampled rows against the FP32 reference without touching a served token);
+the summary gains `[serve] audit:` lines (audited steps and rows, flip
+rate, logit error, per-layer KQ error, calibrated targets), the
+`--metrics-every` lines the audited flip rate, and `--audit-out f.json`
+gets `stats()["audit"]`.
 """
 
 from __future__ import annotations
@@ -51,8 +64,9 @@ import numpy as np
 from repro_torch.configs import get_config, list_archs, reduced as reduce_cfg
 from repro_torch.models import transformer
 from repro_torch.obs import ObsConfig
-from repro_torch.serving import (EngineConfig, FaultConfig, LampEngine,
-                                 PolicyConfig, QueueFullError, SamplingParams)
+from repro_torch.serving import (AuditConfig, EngineConfig, FaultConfig,
+                                 LampEngine, PolicyConfig, QueueFullError,
+                                 SamplingParams)
 from repro_torch.serving.engine import TEXT_FAMILIES
 
 
@@ -82,9 +96,10 @@ def build_stream(rng: np.random.Generator, args, vocab: int):
 
 def metrics_line(engine: LampEngine, elapsed: float) -> str:
     """One-line live snapshot for periodic progress logging (the JAX
-    line). Carries the policy mode, so a burst-load run is readable from
-    the log alone ("mode=shed" explains a rate drop); the audited flip
-    rate reads "-" (the port has no audit)."""
+    line). Carries the policy mode and the audited flip rate ("-" with the
+    audit off), so a burst-load run is readable from the log alone:
+    "mode=shed" explains a rate drop, and a flip-rate spike says the
+    degradation is costing real tokens."""
     s = engine.stats()
     mode = s["policy"]["mode"] if s["policy"]["enabled"] else "off"
     audit = s["audit"]
@@ -167,6 +182,26 @@ def main(argv=None) -> int:
     ap.add_argument("--min-new", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--n-blocks", type=int, default=0,
+                    help="KV pool size in blocks (0 = auto)")
+    ap.add_argument("--max-model-len", type=int, default=0)
+    ap.add_argument("--max-prefill-tokens", type=int, default=2048,
+                    help="prefill-step token budget = chunk size")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="share prompt-prefix KV blocks across requests "
+                         "(copy-on-write)")
+    ap.add_argument("--chunked-prefill",
+                    action=argparse.BooleanOptionalAction, default=True,
+                    help="prefill long prompts in max-prefill-tokens chunks "
+                         "so decode steps interleave")
+    ap.add_argument("--fused", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="fused serving step: one mixed "
+                         "prefill+decode+verify plan per step (token-"
+                         "identical to the phase-segregated step). On by "
+                         "default; --no-fused restores the split phases")
     ap.add_argument("--top-k", type=int, default=0,
                     help="sample from the top-k logits only (0 = "
                          "unfiltered); also the filter the speculative "
@@ -204,6 +239,17 @@ def main(argv=None) -> int:
                     help="step-latency SLO in seconds; exceeding it is "
                          "pressure that degrades the policy mode (0 = no "
                          "latency signal)")
+    ap.add_argument("--audit-rate", type=float, default=0.0,
+                    help="shadow-audit this fraction of serving steps: "
+                         "re-run sampled rows through the FP32 reference "
+                         "forward (never perturbs served tokens) and "
+                         "report realized LAMP error -- per-layer "
+                         "attribution, argmax flip rate, top-k overlap "
+                         "(0 = off)")
+    ap.add_argument("--audit-out", default="",
+                    help="write the final audit summary (stats()['audit'] "
+                         "JSON: per-layer errors, flip rate, calibrated "
+                         "targets) here")
     ap.add_argument("--deadline", type=float, default=0.0,
                     help="per-request wall-clock TTL in seconds; an "
                          "expired request is cancelled with "
@@ -262,11 +308,13 @@ def main(argv=None) -> int:
     if args.reduced:
         cfg = reduce_cfg(cfg)
     longest = args.shared_prefix + args.max_prompt
-    max_len = min(cfg.max_seq, longest + args.max_new + 8)
+    max_len = args.max_model_len or min(cfg.max_seq,
+                                        longest + args.max_new + 8)
     if longest + args.max_new > max_len:
         ap.error(f"shared prefix + max prompt + max new "
-                 f"({longest + args.max_new}) exceeds the model's "
-                 f"max_seq {cfg.max_seq}")
+                 f"({longest + args.max_new}) exceeds the model length "
+                 f"budget {max_len}; raise --max-model-len "
+                 f"(<= cfg.max_seq {cfg.max_seq}) or shrink the request sizes")
     params = transformer.init_params(cfg, args.seed, device=device)
     obs = ObsConfig(trace=bool(args.trace_out), trace_path=args.trace_out,
                     torch_profile_dir=args.torch_profile)
@@ -281,16 +329,23 @@ def main(argv=None) -> int:
                           target_rate=args.target_recompute_rate,
                           latency_slo_s=args.latency_slo)
     engine = LampEngine(cfg, params, EngineConfig(
+        block_size=args.block_size, n_blocks=args.n_blocks,
         max_model_len=max_len, use_lamp=not args.no_lamp,
+        max_prefill_tokens=args.max_prefill_tokens,
+        prefix_cache=args.prefix_cache,
+        chunked_prefill=args.chunked_prefill,
         speculative=args.speculative, draft_len=args.draft_len,
-        kernel=args.kernel, obs=obs, device=str(device), faults=faults,
-        max_queue=args.max_queue, policy=policy))
+        fused_step=args.fused, kernel=args.kernel, obs=obs,
+        device=str(device), faults=faults, max_queue=args.max_queue,
+        policy=policy, audit=AuditConfig(rate=args.audit_rate)))
     stream = build_stream(np.random.default_rng(args.seed), args, cfg.vocab)
     print(f"[serve] arch={cfg.name} device={device} lamp={not args.no_lamp} "
           f"qps={args.qps} requests={args.num_requests} "
           f"pool={engine.pool.num_total}x{engine.pool.block_size} blocks "
+          f"prefix_cache={args.prefix_cache} "
+          f"chunked_prefill={args.chunked_prefill} "
           f"kernel={args.kernel} speculative={args.speculative} "
-          f"policy={args.policy}")
+          f"policy={args.policy} fused={args.fused}")
 
     outputs: List = []
     with engine.obs.profile():
@@ -300,6 +355,10 @@ def main(argv=None) -> int:
     # end-of-run report: exact percentiles over every finished request (the
     # periodic lines use the streaming histogram estimates)
     s = engine.stats(exact=True)
+    if args.audit_out:
+        with open(args.audit_out, "w") as f:
+            json.dump(s["audit"], f, indent=1)
+        print(f"[serve] wrote audit summary to {args.audit_out}")
     if args.trace_out:
         path = engine.write_trace()
         print(f"[serve] wrote Chrome trace ({len(engine.obs.tracer.events())} "
@@ -310,9 +369,13 @@ def main(argv=None) -> int:
         print(f"[serve] wrote metrics snapshot to {args.metrics_out}")
     mean_rate = (np.mean([o.lamp_recompute_rate for o in outputs])
                  if outputs else 0.0)
+    shape = (f"{s['mixed_steps']} mixed steps, {s['launches']} launches"
+             if args.fused else
+             f"{s['prefill_steps']} prefill / {s['decode_steps']} decode "
+             f"steps, {s['launches']} launches")
     print(f"[serve] finished {s['num_finished']}/{args.num_requests} requests "
-          f"in {s['elapsed_s']:.2f}s ({s['mixed_steps']} mixed steps, "
-          f"{s['launches']} launches, {s['preemptions']} preemptions)")
+          f"in {s['elapsed_s']:.2f}s ({shape}, {s['preemptions']} "
+          f"preemptions)")
     print(f"[serve] throughput {s['tokens_per_s']:.1f} tok/s, "
           f"{s['requests_per_s']:.2f} req/s")
     print(f"[serve] latency p50 {s['latency_p50_s'] * 1e3:.0f}ms  "
@@ -357,6 +420,26 @@ def main(argv=None) -> int:
               f"{p['actuations']} actuations), tau mean {p['tau_mean']:.4f} "
               f"[{p['tau_min']:.4f}, {p['tau_max']:.4f}], "
               f"draft_len={p['draft_len']}")
+    if args.audit_rate > 0:
+        a = s["audit"]
+        if a["enabled"]:
+            print(f"[serve] audit: {a['audited_steps']} steps / "
+                  f"{a['audited_rows']} rows audited, "
+                  f"flip rate {a['flip_rate']:.4f}, "
+                  f"logit rel err {a['logit_rel_err']:.3e}, "
+                  f"{a['calibrations']} calibrations")
+            print("[serve] audit per-layer KQ err: "
+                  + " ".join(f"L{i}={e:.2e}"
+                             for i, e in enumerate(a["layer_kq_err"])))
+            if "targets" in a:
+                print("[serve] audit calibrated targets: "
+                      + " ".join(f"L{i}={t:.3f}"
+                                 for i, t in enumerate(a["targets"]))
+                      + f" (guarded: "
+                      f"{sum(1 for ok in a['relax_ok'] if not ok)})")
+        else:
+            print("[serve] audit: disabled (--no-lamp runs have no LAMP "
+                  "error to measure)")
     if s["faults"]["enabled"] or s["recoveries"] or s["failed_requests"]:
         f = s["faults"]
         by = (" ".join(f"{k}={v}" for k, v in f["by_site"].items())

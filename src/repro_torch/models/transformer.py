@@ -1,5 +1,5 @@
-"""Decoder-only transformer: the paged serving steps (port of
-``repro/models/transformer.py:30-60,316-575,735-787``).
+"""Decoder-only transformer: the paged serving steps and the shadow audit's
+forward (port of ``repro/models/transformer.py:30-60,316-787``).
 
 Parameters are a dictionary with the JAX package's layout: every block
 tensor is stacked with a leading (L,) axis, and the layer ``lax.scan``
@@ -16,6 +16,8 @@ Each is the hand-written CUDA kernel for tensors on the card and its plain
 gather version for tensors on the CPU. Every step takes `kernel`, the
 attention path (the JAX package's `kernel` argument): "cuda" calls those
 wrappers, "gather" their plain versions by name, on any device.
+`paged_audit_window`, the shadow audit's forward, always runs the gather
+path (``core.attention``), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -122,6 +124,20 @@ def _serving_site(site: LampSite) -> LampSite:
 def _kq_site(cfg, use_lamp: bool) -> LampSite:
     kq = cfg.lamp.kq
     return _serving_site(kq if use_lamp and kq.enabled else LampSite(enabled=False))
+
+
+def paged_prefill(cfg, params, tokens, arena, block_tables, lengths, *,
+                  use_lamp: bool = True, per_layer: bool = False, taus=None,
+                  kernel: str = "cuda"):
+    """Prefill a padded batch of whole prompts into the paged arena: the
+    degenerate window of `paged_prefill_window` with every row starting at
+    position 0, so whole-prompt and chunked prefill share one computation.
+    tokens: (B, S) left-aligned prompts; lengths: (B,) true prompt lengths
+    (padded rows use 1 and a null block table)."""
+    starts = torch.zeros_like(lengths)
+    return paged_prefill_window(cfg, params, tokens, arena, block_tables,
+                                starts, lengths, use_lamp=use_lamp,
+                                per_layer=per_layer, taus=taus, kernel=kernel)
 
 
 def paged_prefill_window(cfg, params, tokens, arena, block_tables, starts,
@@ -281,3 +297,156 @@ def _paged_window_apply(cfg, params, tokens, arena, block_tables, starts,
     if not per_layer:
         nsel, nval = nsel.sum(dim=0), nval.sum(dim=0)
     return x, arena, (nsel, nval)
+
+
+def paged_audit_window(cfg, params, tokens, arena, block_tables, starts,
+                       lengths, row_mask, *, taus=None, top_k: int = 5
+                       ) -> Dict[str, torch.Tensor]:
+    """Shadow-audit forward: the LAMP serving arm and the FP32 reference arm
+    in lockstep over one window batch; only error telemetry comes back,
+    never logits to sample from and never a written arena.
+
+    Row b replays tokens at absolute positions starts[b] .. starts[b] +
+    lengths[b] - 1 against its block table, as `paged_mixed_step` does:
+    decode rows ride as width-1 windows, speculative rows as their
+    pre-draft width-1 window, prefill rows as their chunk. Three streams a
+    layer:
+
+      * lamp:   the serving computation (LAMP attention at the live
+                `taus`), carried through the stack;
+      * ref:    LAMP off (`attention_reference`, uniform FP32), carried
+                separately;
+      * shadow: LAMP attention on the ref stream's own q/k/v, against the
+                ref attention on them: layer l's local KQ-site error,
+                free of what the layers below passed up.
+
+    Attention runs the gather path (``core.attention`` in the order
+    "dot_ps", the order held against the JAX package) on every device and
+    whatever the engine's attention path, as the JAX package's audit does:
+    on a card that is the plain versions, by name. The served step still
+    runs the kernels, each call of which equals its plain version on the
+    same inputs (outputs to rtol 2e-5 / atol 2e-6, counts exact).
+
+    The served arena is only read. Each stream gathers each row's
+    block-table span into a copy of its own (B x n_max * block_size keys a
+    layer, not the whole arena) and writes the window's K/V into that copy
+    at flat index = absolute position, cast to the arena's dtype as the
+    serving step writes it; the span is then widened to FP32.
+
+    `row_mask` (B,) zeroes padded bucket rows out of every reduction.
+    Returns float32 tensors on the device:
+      kq_err / router_err / cum_err : (L,) mean per-token relative L2 error
+        (local KQ site, local router site -- 0 for the dense families --
+        and cumulative hidden-state drift);
+      logit_rel / logit_max_abs : (B,) final-position logit error;
+      flip : (B,) 1.0 where the greedy argmax token differs;
+      topk : (B,) |top-k(lamp) & top-k(ref)| / k.
+    Per-row entries of padded rows are garbage; callers slice the live
+    prefix."""
+    from repro_torch.core import attention as CA
+
+    B, W = tokens.shape
+    dev = tokens.device
+    n_max = block_tables.shape[1]
+    bs = arena["k"].shape[2]
+    L, H, Hkv, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    S = n_max * bs
+    positions = starts.long()[:, None] + torch.arange(W, device=dev)[None, :]
+    site = _kq_site(cfg, True)
+    off = LampSite(enabled=False)
+    valid_tok = torch.arange(W, device=dev)[None, :] < lengths[:, None]
+    # the window's live tokens: (row, window slot) and their flat index in
+    # the row's gathered span, which is their absolute position
+    rows_i, cols_i = torch.nonzero(valid_tok, as_tuple=True)
+    flat_i = positions[rows_i, cols_i]
+    bt = block_tables.long()
+    if taus is None:
+        taus = torch.full((L,), float(site.tau), dtype=torch.float32, device=dev)
+
+    w = valid_tok.to(torch.float32) * row_mask.to(torch.float32)[:, None]
+    wsum = torch.clamp(torch.sum(w), min=1.0)
+
+    def werr(a, b):
+        # per-token relative L2 error over the feature axis, averaged over
+        # the live tokens of live rows, in FP32
+        af, bf = a.to(torch.float32), b.to(torch.float32)
+        num = torch.sqrt(torch.sum((af - bf) ** 2, dim=-1))
+        den = torch.sqrt(torch.sum(bf ** 2, dim=-1)) + 1e-30
+        return torch.sum((num / den) * w) / wsum
+
+    def span(arena_l, new):
+        # the rows' block-table spans, copied, with this stream's window
+        # written at its positions; widened to FP32 as (B, H, S, hd)
+        t = arena_l[bt].reshape(B, S, Hkv, hd)
+        t[rows_i, flat_i] = new[rows_i, cols_i].to(t.dtype)
+        t = t.to(torch.float32).transpose(1, 2)
+        return t.repeat_interleave(H // Hkv, dim=1) if H != Hkv else t
+
+    def flat(o):
+        # (B, H, W, hd) attention layout -> (B, W, H * hd) feature rows
+        return o.transpose(1, 2).reshape(B, W, -1)
+
+    def attn(qh, kh, vh, lamp_site, tau_l):
+        if lamp_site.enabled:
+            o, _ = CA.attention_lamp(qh, kh, vh, lamp_site, causal=True,
+                                     window=cfg.window, offset=starts,
+                                     reduce=False, tau=tau_l)
+            return o
+        return CA.attention_reference(qh, kh, vh, causal=True,
+                                      window=cfg.window, offset=starts)
+
+    def arm(xc, p_l, l, lamp_site, tau_l):
+        # one residual block of one stream: the new carry and the
+        # intermediates the shadow computation needs
+        h = LY.apply_norm(cfg, xc, p_l, "ln1")
+        q, k, v = LY._project_qkv(cfg, p_l["attn"], h, positions)
+        qh = q.transpose(1, 2)
+        kh, vh = span(arena["k"][l], k), span(arena["v"][l], v)
+        o = attn(qh, kh, vh, lamp_site, tau_l)
+        xc = xc + flat(o).to(xc.dtype) @ p_l["attn"]["wo"]
+        h2 = LY.apply_norm(cfg, xc, p_l, "ln2")
+        return xc + LY.mlp_apply(cfg, p_l["mlp"], h2), (qh, kh, vh, o)
+
+    x0 = LY.embed(cfg, params["embed"], tokens.long(), positions)
+    x_l = x_r = x0
+    kq_err, cum_err = [], []
+    for l in range(L):
+        p_l = layer_params(params["blocks"], l)
+        x_l, _ = arm(x_l, p_l, l, site, taus[l])
+        x_r, (qh_r, kh_r, vh_r, o_r) = arm(x_r, p_l, l, off, taus[l])
+        o_s = attn(qh_r, kh_r, vh_r, site, taus[l])
+        kq_err.append(werr(flat(o_s), flat(o_r)))
+        cum_err.append(werr(x_l, x_r))
+
+    last = torch.clamp(lengths.long(), min=1) - 1
+    rows = torch.arange(B, device=dev)
+
+    def final(x):
+        x = LY.apply_norm(cfg, x, {"lnf_w": params["lnf_w"],
+                                   "lnf_b": params.get("lnf_b")}, "lnf")
+        x = x[rows, last][:, None]
+        return LY.unembed(cfg, params["embed"], x)[:, 0].to(torch.float32)
+
+    lg_l, lg_r = final(x_l), final(x_r)                               # (B, V)
+    diff = lg_l - lg_r
+    logit_rel = (torch.sqrt(torch.sum(diff ** 2, dim=-1))
+                 / (torch.sqrt(torch.sum(lg_r ** 2, dim=-1)) + 1e-30))
+    logit_max_abs = torch.amax(torch.abs(diff), dim=-1)
+    # torch.argmax, like jnp.argmax, returns the first maximum
+    flip = (torch.argmax(lg_l, dim=-1)
+            != torch.argmax(lg_r, dim=-1)).to(torch.float32)
+    k = max(1, min(int(top_k), int(cfg.vocab)))
+
+    def topk_idx(lg):
+        # a stable descending sort keeps the lower index first on ties, as
+        # lax.top_k does (torch.topk does not promise an order on ties)
+        return torch.sort(lg, dim=-1, descending=True, stable=True)[1][:, :k]
+
+    idx_l, idx_r = topk_idx(lg_l), topk_idx(lg_r)
+    topk = torch.mean((idx_l[:, :, None] == idx_r[:, None, :]).any(-1)
+                      .to(torch.float32), dim=-1)
+    return {"kq_err": torch.stack(kq_err),
+            "router_err": torch.zeros((L,), dtype=torch.float32, device=dev),
+            "cum_err": torch.stack(cum_err),
+            "logit_rel": logit_rel, "logit_max_abs": logit_max_abs,
+            "flip": flip, "topk": topk}

@@ -171,3 +171,10 @@ __all__ = [
     "NULL_TRACER", "StepTracer", "ObsConfig", "Observability",
     "DEFAULT_TIME_EDGES", "PHASE_EDGES",
 ]
+
+# imported last: audit.py needs Observability from this module
+from .audit import AuditConfig, ShadowAuditor, audit_hash  # noqa: E402
+from .error_model import calibrate, derive_target_rates, relax_mask  # noqa: E402
+
+__all__ += ["AuditConfig", "ShadowAuditor", "audit_hash", "calibrate",
+            "derive_target_rates", "relax_mask"]

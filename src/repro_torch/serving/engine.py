@@ -1,19 +1,24 @@
 """The continuous-batching LAMP serving engine (port of
-``repro/serving/engine.py``: the fused step, speculative decoding and the
-split twin).
+``repro/serving/engine.py``: the fused step, speculative decoding, the
+split twin, the phase-segregated plans and the shadow audit).
 
-`add_request()` enqueues; `step()` asks the scheduler for one mixed plan --
-chunked-prefill windows, decode rows (width-1 windows at start = cache_len)
-and, with `speculative`, verify rows (width 1 + kd) side by side -- and runs
-it. `mixed_exec="fused"` pads the plan to a power-of-two (rows, window)
-bucket and runs it through one ``transformer.paged_mixed_step``; a plan with
-draft rows first runs the draft (`draft_len` decode steps over the decode
-rows' own bucket), then verifies, samples and accepts in that one mixed
-call. `mixed_exec="split"` runs the same plan through per-phase sub-steps
-(`_step_prefill`, `_step_decode`, `_step_spec`): the differential twin,
-token for token the same. Paged attention runs on the hand-written CUDA
-kernels when the engine's device is a card, and on their plain PyTorch
-versions on the CPU (``device="cpu"``, which the tests ask for).
+`add_request()` enqueues; `step()` asks the scheduler for a plan and runs
+it. With `fused_step` (the default) every plan is mixed -- chunked-prefill
+windows, decode rows (width-1 windows at start = cache_len) and, with
+`speculative`, verify rows (width 1 + kd) side by side. `mixed_exec="fused"`
+pads the plan to a power-of-two (rows, window) bucket and runs it through
+one ``transformer.paged_mixed_step``; a plan with draft rows first runs the
+draft (`draft_len` decode steps over the decode rows' own bucket), then
+verifies, samples and accepts in that one mixed call. `mixed_exec="split"`
+runs the same plan through per-phase sub-steps (`_step_prefill`,
+`_step_decode`, `_step_spec`): the differential twin, token for token the
+same. With `fused_step=False` the scheduler emits the JAX engine's
+phase-segregated plans instead -- each step all prefill or all decode --
+and the engine runs each through the one sub-step of its phase (a decode
+plan with a draft budget as a speculative round). Paged attention runs on
+the hand-written CUDA kernels when the engine's device is a card, and on
+their plain PyTorch versions on the CPU (``device="cpu"``, which the tests
+ask for).
 ``EngineConfig.kernel="gather"`` runs the plain versions by name on any
 device: the counterpart of the JAX engine's attention-path knob, and the
 gather arm of a kernel-against-gather differential on a card.
@@ -73,6 +78,17 @@ acceptance, then writes the per-layer thresholds into the device tensor
 the kernel reads (``taus``, in place), sets the scheduler's draft length
 and, under SHED, the rule tier every later step's ``site.rule`` comes
 from (``_serving_cfg``).
+
+The shadow audit (``obs/audit.py``, ``EngineConfig.audit``; off at rate 0,
+when no auditor exists and the step runs as without it): on a
+deterministic, replayable sample of steps, up to `audit.max_rows` of the
+step's rows are captured before the step runs and replayed after it
+through ``transformer.paged_audit_window`` -- the LAMP stream against the
+FP32 reference, on the gather path, reading the arena without writing it
+-- in an "audit" span. Served tokens never change. The realized error
+lands in ``lamp_audit_*`` metrics, ``stats()["audit"]``, each request's
+``audit_*`` fields and, with a live policy, the error model's per-layer
+recompute targets (``ShadowAuditor.maybe_calibrate``).
 """
 
 from __future__ import annotations
@@ -87,6 +103,7 @@ import torch
 
 from repro_torch.models import transformer
 from repro_torch.obs import ObsConfig, Observability
+from repro_torch.obs.audit import AuditConfig, ShadowAuditor
 
 from . import sampling as SM
 from . import speculative as SP
@@ -97,7 +114,7 @@ from .request import SamplingParams, Sequence, SequenceStatus
 from .scheduler import Scheduler, StepPlan
 
 TEXT_FAMILIES = transformer.FAMILIES
-LAUNCH_KINDS = ("prefill", "decode", "draft", "verify", "mixed")
+LAUNCH_KINDS = ("prefill", "decode", "draft", "verify", "mixed", "audit")
 # arena dtypes the paged kernel reads (EngineConfig.kv_dtype)
 KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
              "float16": torch.float16}
@@ -144,9 +161,15 @@ class EngineConfig:
     # Greedy outputs are those of plain decoding
     speculative: bool = False
     draft_len: int = 4
+    # fused serving step: the scheduler emits one mixed plan per step
+    # (prefill windows, decode rows and verify rows together); False
+    # restores the JAX engine's phase-segregated plans (each step all
+    # prefill or all decode, run through that phase's sub-step)
+    fused_step: bool = True
     # how mixed plans execute: "fused" (one mixed launch, plus the draft
     # when rows drafted) or "split" (the same plan through the prefill /
-    # decode / speculative sub-steps: the differential twin)
+    # decode / speculative sub-steps: the differential twin); consulted
+    # only when fused_step is on
     mixed_exec: str = "fused"
     # attention path over the paged arena: "cuda" calls the kernel wrappers
     # (the hand-written kernels on a card, their plain versions on the
@@ -158,6 +181,13 @@ class EngineConfig:
     # always on; obs.trace additionally records step-phase spans for
     # Chrome-trace export (see repro_torch.obs.ObsConfig)
     obs: ObsConfig = ObsConfig()
+    # shadow audit (obs/audit.py): on a deterministic sample of steps,
+    # replay up to audit.max_rows rows through the LAMP-vs-FP32 lockstep
+    # forward (gather path, the arena read, never written) and record the
+    # realized error -- lamp_audit_* metrics, stats()["audit"] and, with the
+    # policy on, error-model-calibrated per-layer targets. rate 0 (the
+    # default) builds no auditor
+    audit: AuditConfig = AuditConfig()
     # adaptive LAMP policy loop (serving/policy.py): per-layer thresholds
     # moved toward target recompute rates every step (written in place into
     # the device tensor the kernel reads), with load-aware degradation of
@@ -211,6 +241,11 @@ class RequestOutput:
     spec_accepted: int = 0          # drafted tokens the verifier accepted
     lamp_layer_selected: Optional[List[float]] = None
     lamp_layer_valid: Optional[List[float]] = None
+    # shadow-audit accumulation: steps this request was audited in, summed
+    # final-logit relative error across them, and argmax flips observed
+    audit_samples: int = 0
+    audit_err_sum: float = 0.0
+    audit_flips: int = 0
     # set only on individually-failed requests (finish_reason "timeout" /
     # "unhealthy" / "stalled"): the diagnostic the engine failed them with
     error: Optional[str] = None
@@ -218,6 +253,14 @@ class RequestOutput:
     @property
     def lamp_recompute_rate(self) -> float:
         return self.lamp_selected / self.lamp_valid if self.lamp_valid else 0.0
+
+    @property
+    def lamp_layer_rates(self) -> List[float]:
+        """Per-layer recompute rate for this request (empty if no LAMP)."""
+        if not self.lamp_layer_selected:
+            return []
+        return [s / v if v else 0.0 for s, v in
+                zip(self.lamp_layer_selected, self.lamp_layer_valid)]
 
     @property
     def spec_acceptance_rate(self) -> float:
@@ -317,7 +360,7 @@ class LampEngine:
             max_decode_batch=econfig.max_decode_batch,
             chunked_prefill=econfig.chunked_prefill,
             spec_draft_len=econfig.draft_len if econfig.speculative else 0,
-            obs=self.obs)
+            mixed=econfig.fused_step, obs=self.obs)
         self.spec_config = (SP.SpecConfig(draft_len=econfig.draft_len)
                             if econfig.speculative else None)
         self._next_id = 0
@@ -440,6 +483,13 @@ class LampEngine:
                 base_draft_len=(econfig.draft_len if econfig.speculative
                                 else 0),
                 obs=self.obs)
+
+        # -- shadow audit: realized-error telemetry on a deterministic sample
+        # of steps. Only with LAMP on: without it LAMP-vs-reference
+        # divergence is identically zero
+        self.auditor: Optional[ShadowAuditor] = None
+        if econfig.audit.rate > 0 and econfig.use_lamp:
+            self.auditor = ShadowAuditor(econfig.audit, L, self.obs)
 
         # -- fault tolerance: the deterministic injector (None when
         # disabled), the rows the health guard pulled out of this step, and
@@ -616,6 +666,52 @@ class LampEngine:
             self._recover("alloc_defer", n=d_alloc)
         if plan is None:
             return self._drain_failures()
+        # audit rows are captured before the sub-step runs (it moves
+        # cursors, appends tokens and rolls back block tables) and replayed
+        # after it, against the post-step arena: the audited window rewrites
+        # its own K/V in the shadow's copy, and the prefix below `starts` is
+        # the same before and after the step
+        audit_batch = (self._audit_capture(plan)
+                       if self.auditor is not None else None)
+        if plan.kind == "prefill":
+            self._step_prefill(plan.seqs, plan.windows)
+            self._c_prefill_steps.inc()
+        elif plan.kind == "mixed":
+            self._run_mixed(plan, step_id)
+        elif self._spec_round(plan.draft_lens):
+            self._step_spec(plan.seqs, plan.draft_lens)
+            self._c_spec_rounds.inc()
+        else:
+            # no draft budget anywhere (spec off, block pressure shed it, or
+            # every sequence is at its token limit): a plain decode step
+            self._step_decode(plan.seqs)
+            self._c_decode_steps.inc()
+        if self._quarantine:
+            # rows the health guard pulled out of the step: retry each
+            # through the recovery ladder (or fail it alone), then prove the
+            # pool survived the surgery
+            with self.obs.span("recover", rows=len(self._quarantine)):
+                self._drain_quarantine()
+            self.pool.check_invariants(self._seqs.values())
+        self._util_sum += self.pool.utilization
+        self._util_n += 1
+        if audit_batch is not None:
+            # before _collect_finished (which frees blocks), so a request
+            # audited on its finishing step still folds into its histogram
+            self._run_audit(audit_batch)
+        with self.obs.span("emit"):
+            done = self._collect_finished(plan.seqs)
+        done.extend(self._drain_failures())
+        if self.econfig.paranoid:
+            self.pool.check_invariants(self._seqs.values())
+        self._last_step_wall = self._now() - t0
+        if self.policy is not None:
+            self._policy_update()
+        return done
+
+    def _run_mixed(self, plan: StepPlan, step_id: int) -> None:
+        """Run a mixed plan: fused, or through the split twin."""
+        inj = self.faults
         if self.econfig.mixed_exec == "split":
             self._step_mixed_split(plan)
         else:
@@ -639,24 +735,6 @@ class LampEngine:
             self._c_mixed_decode.inc()
         if self._spec_round(plan.draft_lens):
             self._c_mixed_verify.inc()
-        if self._quarantine:
-            # rows the health guard pulled out of the step: retry each
-            # through the recovery ladder (or fail it alone), then prove the
-            # pool survived the surgery
-            with self.obs.span("recover", rows=len(self._quarantine)):
-                self._drain_quarantine()
-            self.pool.check_invariants(self._seqs.values())
-        self._util_sum += self.pool.utilization
-        self._util_n += 1
-        with self.obs.span("emit"):
-            done = self._collect_finished(plan.seqs)
-        done.extend(self._drain_failures())
-        if self.econfig.paranoid:
-            self.pool.check_invariants(self._seqs.values())
-        self._last_step_wall = self._now() - t0
-        if self.policy is not None:
-            self._policy_update()
-        return done
 
     # -- adaptive policy loop -----------------------------------------------
 
@@ -707,6 +785,83 @@ class LampEngine:
         if self.econfig.speculative:
             self.scheduler.spec_draft_len = act.draft_len
 
+    # -- shadow audit -------------------------------------------------------
+
+    def _audit_capture(self, plan: StepPlan) -> Optional[Dict[str, Any]]:
+        """Select and copy this step's audited rows (or None).
+
+        Rows are chosen by the hash of (step, request, salt), so a rerun of
+        the same stream audits the same rows. Every input the shadow forward
+        needs is copied now: the step advances prefill cursors, appends
+        tokens and rolls back block tables before the audit runs. Decode and
+        verify rows are audited as their width-1 pre-draft window (the query
+        the serving step's first position ran); prefill rows replay their
+        chunk."""
+        step_id = self.total_steps
+        seqs = plan.seqs
+        idx = self.auditor.select(step_id, [s.req_id for s in seqs])
+        if not idx:
+            return None
+        roles = list(plan.roles or [None] * len(seqs))
+        rows: List[Any] = []
+        for i in idx:
+            seq = seqs[i]
+            if plan.kind == "prefill" or roles[i] == "prefill":
+                w = plan.windows[i]
+                cur = seq.prefill_cursor
+                toks = list(seq.prefill_tokens()[cur:cur + w])
+                start = cur
+            else:
+                toks = [seq.last_token]
+                start = seq.cache_len
+            rows.append((seq, start, toks))
+        Bb = _bucket(len(rows), 0)
+        Wb = _bucket(max(len(t) for _, _, t in rows), 0)
+        tokens = np.zeros((Bb, Wb), np.int32)
+        starts = np.zeros((Bb,), np.int32)
+        lengths = np.ones((Bb,), np.int32)   # pad rows: 1 token, null table
+        row_mask = np.zeros((Bb,), np.float32)
+        bt = np.zeros((Bb, self.blocks_per_seq), np.int32)
+        for j, (seq, start, toks) in enumerate(rows):
+            tokens[j, :len(toks)] = toks
+            starts[j] = start
+            lengths[j] = len(toks)
+            row_mask[j] = 1.0
+            bt[j, :len(seq.block_ids)] = seq.block_ids
+        return {"step": step_id, "seqs": [r[0] for r in rows],
+                "tokens": tokens, "starts": starts, "lengths": lengths,
+                "row_mask": row_mask, "bt": bt, "bucket": (Bb, Wb)}
+
+    def _run_audit(self, batch: Dict[str, Any]) -> None:
+        """Replay one captured audit batch through the shadow forward (the
+        arena is read, never written: every served token is untouched) at
+        the rule tier and taus in force, bring its metrics to the host in
+        one copy, fold them into the auditor and, with a live policy, run
+        the error model's calibration."""
+        Bb, Wb = batch["bucket"]
+        first = self._first_run("audit", (Bb, Wb))
+        with self.obs.span("audit", rows=len(batch["seqs"]),
+                           bucket=[Bb, Wb]) as sp:
+            out = transformer.paged_audit_window(
+                self._serving_cfg(), self.params, self._dev(batch["tokens"]),
+                {"k": self.pool.k, "v": self.pool.v}, self._dev(batch["bt"]),
+                self._dev(batch["starts"]), self._dev(batch["lengths"]),
+                self._dev(batch["row_mask"]), taus=self.taus,
+                top_k=self.econfig.audit.top_k)
+            host = torch.cat([v.reshape(-1) for v in out.values()]
+                             ).cpu().numpy()
+        self._c_launches["audit"].inc()
+        if first:
+            self.obs.record_compile("audit", (Bb, Wb), sp.elapsed,
+                                    self.total_steps)
+        metrics, at = {}, 0
+        for name, v in out.items():
+            metrics[name] = host[at:at + v.numel()]
+            at += v.numel()
+        self.auditor.account(batch["step"], batch["seqs"], metrics)
+        if self.policy is not None and not self.policy.config.frozen:
+            self.auditor.maybe_calibrate(self.policy)
+
     def _batch_arrays(self, seqs: List[Sequence], Bb: int):
         bt = np.zeros((Bb, self.blocks_per_seq), np.int32)
         seeds = np.zeros((Bb,), np.int64)
@@ -743,7 +898,8 @@ class LampEngine:
     def _spec_round(self, draft_lens) -> bool:
         return self.spec_config is not None and any(draft_lens)
 
-    def _first_run(self, fn: str, shape: tuple, topks: np.ndarray) -> bool:
+    def _first_run(self, fn: str, shape: tuple,
+                   topks: Optional[np.ndarray] = None) -> bool:
         """Whether this is the process's first run of step function `fn`
         (keyed as the JAX engine keys its jitted functions: model config,
         LAMP flag, attention path, draft length, top-k variant) at bucket
@@ -756,7 +912,7 @@ class LampEngine:
                  self.econfig.kernel))
         key = (fn, model, self.econfig.draft_len
                if fn in ("draft", "verify", "mixed_spec") else 0,
-               bool(topks.any()), shape)
+               topks is not None and bool(topks.any()), shape)
         if key in _STEP_KEYS:
             return False
         _STEP_KEYS.add(key)
@@ -1009,7 +1165,8 @@ class LampEngine:
             num_cached_tokens=seq.num_cached_tokens,
             num_resume_cached_tokens=seq.num_resume_cached_tokens,
             spec_drafted=seq.spec_drafted, spec_accepted=seq.spec_accepted,
-            error=error)
+            audit_samples=seq.audit_samples, audit_err_sum=seq.audit_err_sum,
+            audit_flips=seq.audit_flips, error=error)
         self._finished.append(out)
         self._seqs.pop(seq.req_id, None)
         self._step_failures.append(out)
@@ -1361,7 +1518,12 @@ class LampEngine:
                 num_resume_cached_tokens=seq.num_resume_cached_tokens,
                 spec_drafted=seq.spec_drafted,
                 spec_accepted=seq.spec_accepted,
-                lamp_layer_selected=lamp_l_sel, lamp_layer_valid=lamp_l_val)
+                lamp_layer_selected=lamp_l_sel, lamp_layer_valid=lamp_l_val,
+                audit_samples=seq.audit_samples,
+                audit_err_sum=seq.audit_err_sum,
+                audit_flips=seq.audit_flips)
+            if self.auditor is not None:
+                self.auditor.finish_request(seq)
             self._finished.append(out)
             self._c_finished.inc()
             self._c_cached_prefix.inc(seq.num_cached_tokens)
@@ -1489,8 +1651,9 @@ class LampEngine:
             # adaptive policy loop (serving/policy.py)
             "policy": (self.policy.stats() if self.policy is not None
                        else {"enabled": False}),
-            # the JAX engine's shadow-audit key: this engine has no audit
-            "audit": {"enabled": False},
+            # shadow audit (obs/audit.py): realized LAMP error telemetry
+            "audit": (self.auditor.stats() if self.auditor is not None
+                      else {"enabled": False}),
             # fault tolerance (serving/faults.py + the recovery ladder)
             "recoveries": self.recoveries,
             "failed_requests": self.failed_requests,
@@ -1505,8 +1668,8 @@ class LampEngine:
         return self.obs.write_trace(path)
 
     def _hang_diagnostic(self, n_events: int = 16) -> str:
-        """The registry's scalar metrics, the live sequences and the trace
-        tail, for the run_to_completion error: a hung stream is debuggable
+        """The registry's scalar metrics, the live sequences, the trace
+        tail and the audit ring's tail, for the run_to_completion error: a hung stream is debuggable
         from the log alone."""
         self._sync_gauges()
         scalars = {k: v for k, v in self.obs.registry.snapshot().items()
@@ -1525,6 +1688,15 @@ class LampEngine:
         else:
             lines.append("trace ring empty (enable EngineConfig.obs.trace "
                          "for span-level hang forensics)")
+        # accuracy regressions that stall acceptance (and so progress) show
+        # up as flip-rate spikes in the audit ring
+        if self.auditor is not None:
+            tail = self.auditor.ring_tail()
+            lines.append("audit ring tail: " + ("; ".join(tail) if tail
+                                                else "(no audited steps)"))
+        else:
+            lines.append("audit off (set EngineConfig.audit.rate for "
+                         "realized-error forensics)")
         return "\n".join(lines)
 
     def run_to_completion(self, max_steps: int = 100000) -> List[RequestOutput]:

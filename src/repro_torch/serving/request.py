@@ -1,6 +1,5 @@
 """Request/Sequence lifecycle objects for the continuous-batching engine
-(a copy of ``repro/serving/request.py`` without the fields of the part not
-ported yet: the shadow audit).
+(a copy of ``repro/serving/request.py``).
 
 A `Sequence` tracks one request through
     WAITING -> PREFILL -> DECODE -> FINISHED
@@ -108,10 +107,17 @@ class Sequence:
         # per-chunk registration does not rehash the whole prefix
         self.prefix_hashes: List[int] = []
         self.num_preemptions = 0
-        # speculative decoding: tokens this request drafted and how many of
-        # those drafts the verifier accepted (across all rounds)
+        # speculative-decoding cursors: tokens this request drafted and how
+        # many of those drafts the verifier accepted (across all rounds)
         self.spec_drafted = 0
         self.spec_accepted = 0
+        # shadow-audit accumulation (obs/audit.py): audited steps this
+        # request rode in, summed final-logit relative error, and argmax
+        # flips -- folded into the per-request cumulative-error histogram
+        # and RequestOutput at finish
+        self.audit_samples = 0
+        self.audit_err_sum = 0.0
+        self.audit_flips = 0
         self.first_token_time: Optional[float] = None
         self.finish_time: Optional[float] = None
         self.finish_reason: Optional[str] = None

@@ -1,5 +1,4 @@
-"""Continuous-batching scheduler (port of ``repro/serving/scheduler.py``,
-fused mixed plans only).
+"""Continuous-batching scheduler (port of ``repro/serving/scheduler.py``).
 
 Policy (vLLM-v0 style, adapted to fixed-shape buckets):
 
@@ -10,11 +9,14 @@ Policy (vLLM-v0 style, adapted to fixed-shape buckets):
     tokens (at least one token must run to produce logits), and a cap that
     lands mid-block copies that block on write before the sequence may fill
     its tail.
-  * Every step is one mixed plan: prefill windows first (chunk continuation
-    and admission), then decode rows, each one token plus its draft budget.
-    The JAX package's phase-segregated plans are not ported: the engine's
-    split twin runs these same mixed plans through per-phase sub-steps.
-    Plans carry `draft_lens` and `roles`, so a plan stream compares one to
+  * With `mixed` (the engine's `fused_step`) every step is one mixed plan:
+    prefill windows first (chunk continuation and admission), then decode
+    rows, each one token plus its draft budget; plans carry `windows`,
+    `draft_lens` and `roles`. Without it each step is either one prefill
+    batch or one decode batch, as in the JAX package's pre-fusion
+    scheduler: prefill is preferred, but never twice in a row while
+    sequences are decoding, and with FCFS preemption order the oldest
+    request always progresses. Either way a plan stream compares one to
     one with the JAX scheduler's.
   * Speculative decoding (`spec_draft_len` > 0): each decode row gets a
     draft budget, oldest first, out of what the prefill windows left of the
@@ -52,17 +54,17 @@ from .request import Sequence, SequenceStatus
 
 @dataclasses.dataclass
 class StepPlan:
-    kind: str                  # always "mixed" in the port
+    kind: str                  # "prefill" | "decode" | "mixed"
     seqs: List[Sequence]
-    # live tokens each row runs this step: the chunk window starting at
-    # prefill_cursor for prefill rows, 1 + draft_lens[i] for decode / verify
-    # rows (the verify span, bonus position included)
+    # prefill / mixed: live tokens each row runs this step: the chunk window
+    # starting at prefill_cursor for prefill rows, 1 + draft_lens[i] for
+    # mixed decode / verify rows (the verify span, bonus position included)
     windows: Optional[List[int]] = None
-    # tokens each sequence may draft this round (0 = plain decode; always 0
-    # for prefill rows and without speculative decoding)
+    # decode / mixed: tokens each sequence may draft this round (0 = plain
+    # decode; always 0 for prefill rows and without speculative decoding)
     draft_lens: Optional[List[int]] = None
-    # per-row role: "prefill" (chunk window), "decode" (plain next-token
-    # row) or "verify" (speculative round with draft_lens[i] > 0)
+    # mixed only: per-row role -- "prefill" (chunk window), "decode" (plain
+    # next-token row) or "verify" (speculative round with draft_lens[i] > 0)
     roles: Optional[List[str]] = None
 
 
@@ -70,7 +72,7 @@ class Scheduler:
     def __init__(self, pool: PagedKVPool, *, max_prefill_batch: int = 8,
                  max_prefill_tokens: int = 2048, max_decode_batch: int = 32,
                  chunked_prefill: bool = False, spec_draft_len: int = 0,
-                 obs=None):
+                 mixed: bool, obs=None):
         self.pool = pool
         # optional Observability (repro_torch.obs): block-alloc spans and
         # preemption instants; None (standalone scheduler tests): no-ops
@@ -82,12 +84,17 @@ class Scheduler:
         self.max_decode_batch = max_decode_batch
         self.chunked_prefill = chunked_prefill
         self.spec_draft_len = spec_draft_len
+        # fused-step mode: every schedule() emits one "mixed" plan instead
+        # of alternating phase-segregated prefill / decode plans; no default,
+        # so the engine's `fused_step` is the one place the choice is made
+        self.mixed = mixed
         self.waiting: Deque[Sequence] = deque()
         self.running: List[Sequence] = []
         self.num_preemptions = 0
         # allocation failures (injected or real transients) absorbed by
         # degrading the step instead of crashing
         self.alloc_fault_degrades = 0
+        self._last_was_prefill = False
 
     # -- queue ops ----------------------------------------------------------
 
@@ -272,14 +279,19 @@ class Scheduler:
         return StepPlan("prefill", batch, windows)
 
     def _grant_draft_budgets(self, batch: List[Sequence],
-                             budget: int) -> List[int]:
+                             budget: Optional[int] = None) -> List[int]:
         """Per-sequence draft budget for this round, oldest first (`batch`
-        is oldest-first): sum(kd) is capped at `budget`, what the plan's
-        prefill windows left of the token budget after one position per
-        decode row, and no sequence drafts past its own token limit (the
-        round emits at most kd + 1 tokens)."""
+        is oldest-first). The verify pass is a (kd + 1)-token window, the
+        compute shape of a prefill chunk, so drafts come out of the prefill
+        token budget: one position per decode row is free and sum(kd) is
+        capped at `budget` (default: what the token budget has left after
+        those; a mixed plan passes what its prefill windows left). No
+        sequence drafts past its own token limit (the round emits at most
+        kd + 1 tokens)."""
         if self.spec_draft_len <= 0:
             return [0] * len(batch)
+        if budget is None:
+            budget = max(0, self.max_prefill_tokens - len(batch))
         out = []
         for seq in batch:
             kd = min(self.spec_draft_len, budget,
@@ -288,6 +300,53 @@ class Scheduler:
             out.append(kd)
             budget -= kd
         return out
+
+    def _try_decode(self) -> Optional[StepPlan]:
+        """A phase-segregated decode plan: every decoding sequence, oldest
+        first, up to max_decode_batch, with its draft budget and blocks for
+        its next-token and speculative K/V writes. Under block pressure
+        draft budgets shrink by one per row before the youngest running
+        sequence (never the oldest of the batch) is preempted."""
+        while True:
+            ready = [s for s in self.running
+                     if s.status == SequenceStatus.DECODE]
+            if not ready:
+                return None
+            batch = sorted(ready,
+                           key=lambda s: s.arrival_time)[:self.max_decode_batch]
+            draft_lens = self._grant_draft_budgets(batch)
+            while True:
+                # blocks to cover each sequence's next-token K/V write plus
+                # its speculative lookahead (cache_len .. cache_len + kd)
+                deficits = []
+                need = 0
+                for seq, kd in zip(batch, draft_lens):
+                    want = self.pool.blocks_for(seq.cache_len + 1 + kd)
+                    deficits.append(max(0, want - len(seq.block_ids)))
+                    need += deficits[-1]
+                if need <= self.pool.num_free:
+                    try:
+                        if need > 0:
+                            with self._span("alloc", blocks=need):
+                                for seq, deficit in zip(batch, deficits):
+                                    if deficit:
+                                        seq.block_ids.extend(
+                                            self.pool.alloc(deficit))
+                    except ArenaAllocFault:
+                        # degrade and re-grant: blocks already extended stay
+                        # owned; the recomputed deficits skip them
+                        self.alloc_fault_degrades += 1
+                        continue
+                    return StepPlan("decode", batch, draft_lens=draft_lens)
+                if any(draft_lens):
+                    # shed speculative lookahead before evicting anyone: a
+                    # shorter draft is strictly cheaper than a recompute
+                    draft_lens = [max(0, kd - 1) for kd in draft_lens]
+                    continue
+                if self._preempt_youngest(keep=batch[0]):
+                    break              # recompose the batch
+                raise RuntimeError(
+                    "KV pool too small for a single sequence; raise n_blocks")
 
     def _mixed_decode_part(self, pre_seqs: List[Sequence],
                            pre_windows: List[int]):
@@ -345,7 +404,7 @@ class Scheduler:
                 raise RuntimeError(
                     "KV pool too small for a single sequence; raise n_blocks")
 
-    def schedule(self) -> Optional[StepPlan]:
+    def _schedule_mixed(self) -> Optional[StepPlan]:
         """One fused step: prefill windows first (chunk continuation +
         admission, exactly `_try_prefill`), then decode / verify rows
         funded by the leftover token budget -- all in a single mixed
@@ -380,6 +439,39 @@ class Scheduler:
             draft_lens=[0] * len(pre_seqs) + draft_lens,
             roles=(["prefill"] * len(pre_seqs)
                    + ["verify" if kd else "decode" for kd in draft_lens]))
+
+    def schedule(self) -> Optional[StepPlan]:
+        """The next step's plan (None when nothing can run): one mixed plan
+        with `mixed`, else one phase-segregated prefill or decode plan."""
+        if self.mixed:
+            return self._schedule_mixed()
+        decode_possible = any(s.status == SequenceStatus.DECODE
+                              for s in self.running)
+        prefill_work = bool(self.waiting) or any(
+            s.status == SequenceStatus.PREFILL for s in self.running)
+        prefer_prefill = prefill_work and not (
+            self._last_was_prefill and decode_possible)
+        plan = None
+        if prefer_prefill:
+            plan = self._try_prefill()
+        if plan is None and decode_possible:
+            plan = self._try_decode()
+        if plan is None and prefill_work and not prefer_prefill:
+            plan = self._try_prefill()
+        if plan is None and prefill_work and not decode_possible \
+                and self.running:
+            # every runnable sequence is mid-prefill but starved of blocks:
+            # evict youngest-first until the oldest can advance
+            oldest = min(self.running, key=lambda s: s.arrival_time)
+            while self._preempt_youngest(keep=oldest):
+                plan = self._try_prefill()
+                if plan is not None:
+                    break
+            if plan is None:
+                raise RuntimeError(
+                    "KV pool too small for a single sequence; raise n_blocks")
+        self._last_was_prefill = plan is not None and plan.kind == "prefill"
+        return plan
 
     def finish(self, seq: Sequence) -> None:
         """Release a finished sequence's resources. Registered prefix blocks

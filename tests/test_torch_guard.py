@@ -29,7 +29,8 @@ micro = {"repro_torch.kernels." + m for m in
          ("flash_decode", "lamp_attention", "ps_matmul", "rmsnorm")}
 assert micro | {"repro_torch.launch.kernels_micro"} <= set(names), names
 obs = {"repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.tracing",
-       "repro_torch.obs.audit", "repro_torch.serving.faults",
+       "repro_torch.obs.audit", "repro_torch.obs.error_model",
+       "repro_torch.serving.faults",
        "repro_torch.serving.policy", "repro_torch.serving.sampling"}
 assert obs <= set(names), names
 for name in names:

@@ -64,7 +64,8 @@ def test_defrag_moves_rows_with_their_blocks(cfg):
 
 def test_alloc_fault_defers_admission_without_state_change(cfg):
     pool = _pool(cfg)
-    sched = Scheduler(pool, max_prefill_tokens=8, chunked_prefill=True)
+    sched = Scheduler(pool, max_prefill_tokens=8, chunked_prefill=True,
+                      mixed=True)
     seq = Sequence(0, list(range(10)), SamplingParams(max_new_tokens=2), 0.0)
     sched.add(seq)
     pool.arm_alloc_failure(1)

@@ -221,10 +221,9 @@ def test_metrics_snapshot_names_match_jax(model):
         assert ts[name] == js[name], name
     assert ts["engine_requests_finished_total"] == len(touts)
     assert ts["engine_request_latency_seconds"]["count"] == len(touts)
-    # launches by fn: the JAX engine also has an audit child (no audit here)
-    jl = {k: v for k, v in js["engine_launches_total"].items()
-          if k != "fn=audit"}
-    assert ts["engine_launches_total"] == jl
+    # launches by fn, the audit child included (no audit here: 0 in both)
+    assert ts["engine_launches_total"] == js["engine_launches_total"]
+    assert ts["engine_launches_total"]["fn=audit"] == 0
     text = teng.obs.registry.to_prometheus()
     assert "engine_steps_total" in text and "lamp_kq_products_total" in text
     h = teng._h_latency
