@@ -147,6 +147,27 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            through the mixed kernel, decode and draft through the decode
            kernel), no mixed step; launches by kind and ms per step printed
            beside the fused run's (nothing claimed)
+  moe      the MoE family: qwen3-moe-30b-a3b at its published widths (128
+           experts, top 8, bfloat16, router strict g 0) cut to 2 layers.
+           Layer 0's moe_apply on the card and on the CPU at an 8 x 128
+           and an 8 x 1 bucket: routing, slots and keep mask equal,
+           outputs within MOE_REL_L2 / MOE_MAX_ABS_OF_MAX, kept_frac
+           printed (the 8 x 1 bucket drops); the engine's stream with
+           kernel "cuda" under Shadow against kernel "gather", in bfloat16
+           and with the weights cast to FP32: every call held, launches in
+           the cuda arm only, the first step's layer-0 MoE inputs (every
+           token, padding included) within MOE_INPUT_REL of the gather
+           arm's, first tokens equal in FP32 (in bfloat16 the held outputs
+           round apart in a few elements and capacity routing passes that
+           on: printed with the first steps' routing entries apart, not
+           gated), all tokens compared and printed; speculation on (fused,
+           draft_len 4) under Shadow: both
+           kernels launched as the counters predict, every request
+           finished, tokens equal to the spec-off run printed (capacity
+           routing depends on the bucket, so not gated); the audit at
+           rate 1 on two requests of 4 new tokens: tokens unchanged,
+           layer_router_err finite and > 0 in both layers; init seconds,
+           parameter bytes, max_memory_allocated and the phase's seconds
 
 The loud rule holds for every engine run of every phase but the ladder
 exhaustion run: no recovery through the gather or FP32 rung (they run the
@@ -2054,6 +2075,283 @@ def phase_phased(params, cfg, ref_tokens):
     require(all(checks.values()), f"phased phase failed its checks: {checks}")
 
 
+def moe_2_layers():
+    """qwen3-moe-30b-a3b at its published widths (d 2048, 32 heads on 4 KV
+    heads, hd 128, qk-norm, RoPE theta 1e6, 128 experts, top 8, expert FFN
+    768, vocab 151936, bfloat16, the deployment policy: KQ relaxed g 0,
+    router strict g 0, mu 7, tau 0.05) with its 48 layers cut to 2."""
+    from repro_torch.configs import get_config
+    return get_config("qwen3-moe-30b-a3b").replace(
+        n_layers=2, name="qwen3-moe-30b-a3b-2l")
+
+
+# one MoE layer in bfloat16, card against CPU on the same inputs: the
+# expert matmuls sum in other orders, so each bfloat16 rounding of h, of
+# the activation's product, of the expert outputs, of the gate products
+# and of the eight combine additions may land one step apart (2^-8
+# relative each); six such roundings in a chain give the bound
+MOE_REL_L2 = 1e-2
+MOE_MAX_ABS_OF_MAX = 2e-2
+# the first engine step's layer-0 MoE inputs, kernel arm against gather
+# arm, each token's relative L2: the attention outputs agree to rtol 2e-5,
+# so in bfloat16 a few elements of a token round one step (2^-8 relative)
+# apart and the output projection, residual add and norm round once more
+# each; a wrong kernel (a padded query, the null block) moves whole tokens
+MOE_INPUT_REL = 1e-2
+
+
+def moe_layer_card_vs_cpu(cfg, params):
+    """`moe_apply` of layer 0 on the card and on the CPU at an 8 x 128 and
+    an 8 x 1 bucket of seeded hidden states: routing (top-k experts), the
+    slots and the keep mask equal, outputs within MOE_REL_L2 /
+    MOE_MAX_ABS_OF_MAX; the kept share printed (the 8 x 1 bucket's
+    capacity is 2 entries an expert). The router's low arms are compared
+    too: a y_low that rounds apart (the FP32 products summed in another
+    order, a value on a PS(7) boundary) is printed, not gated."""
+    from repro_torch.core.mixed_matmul import dot_ps
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as TT
+    p_card = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    p_cpu = {k: v.cpu() for k, v in p_card.items()}
+    site = TT._router_site(cfg, True)
+    gen = torch.Generator().manual_seed(7)
+    # a component every token shares (as hidden states do) skews the
+    # routing, so the 8 x 1 bucket's capacity of 2 binds
+    shared = torch.randn((1, 1, cfg.d_model), generator=gen)
+    out, ok = [], True
+    for B, T in ((8, 128), (8, 1)):
+        x = (0.7 * torch.randn((B, T, cfg.d_model), generator=gen)
+             + shared).to(torch.bfloat16)
+        got = {}
+        for dev, p in ((DEVICE, p_card), ("cpu", p_cpu)):
+            xd = x.to(dev)
+            y, m = TM.moe_apply(cfg, p, xd, lamp_site=site)
+            _, _, top_e, _ = TM.route(cfg, p["router"],
+                                      xd.reshape(-1, cfg.d_model), site)
+            pos = TM.slots(top_e.reshape(-1), cfg.n_experts)
+            cap = TM.capacity(cfg, B * T, T, False)
+            y_low = dot_ps(xd.reshape(-1, cfg.d_model).float(), p["router"],
+                           site.mu, granularity=site.granularity)
+            got[dev] = dict(y=y.float().cpu(), top_e=top_e.cpu(),
+                            pos=pos.cpu(), keep=(pos < cap).cpu(), cap=cap,
+                            kept=float(m["kept_frac"]),
+                            rate=float(m["router_lamp_rate"]),
+                            y_low=y_low.cpu())
+        c, h = got[DEVICE], got["cpu"]
+        err = c["y"] - h["y"]
+        rel_l2 = float(err.norm() / h["y"].norm())
+        max_abs = float(err.abs().max())
+        of_max = max_abs / float(h["y"].abs().max())
+        ms = time_call(lambda: TM.moe_apply(cfg, p_card, x.to(DEVICE),
+                                            lamp_site=site))
+        checks = {"routing_equal": torch.equal(c["top_e"], h["top_e"]),
+                  "slots_equal": torch.equal(c["pos"], h["pos"]),
+                  "keep_equal": torch.equal(c["keep"], h["keep"]),
+                  "kept_frac_equal": c["kept"] == h["kept"],
+                  "outputs": rel_l2 <= MOE_REL_L2
+                  and of_max <= MOE_MAX_ABS_OF_MAX,
+                  "drops_at_decode": T > 1 or c["kept"] < 1.0}
+        ok = ok and all(checks.values())
+        out.append({"bucket": [B, T], "capacity": c["cap"],
+                    "kept_frac": c["kept"], "kept_frac_cpu": h["kept"],
+                    "router_lamp_rate": c["rate"],
+                    "router_lamp_rate_cpu": h["rate"],
+                    "y_low_apart": int((c["y_low"] != h["y_low"]).sum()),
+                    "rel_l2": rel_l2, "max_abs_err": max_abs,
+                    "max_abs_of_max": of_max, "card_ms": ms,
+                    "checks": checks})
+    return out, ok
+
+
+def serve_few(params, cfg, n, new, **options):
+    """The first `n` prompts of the engine's stream, `new` greedy tokens
+    each: (engine, {req_id: tokens})."""
+    from repro_torch.serving import SamplingParams
+    eng = make_engine(params, cfg, requests=False, **options)
+    for i, prompt in enumerate(engine_requests(cfg)[:n]):
+        eng.add_request(prompt, SamplingParams(max_new_tokens=new, seed=i))
+    outs = eng.run_to_completion()
+    check_loud(eng, f"serve_few {options}")
+    return eng, {o.req_id: o.tokens for o in outs}
+
+
+class RoutingRecorder:
+    """Wraps `moe.moe_apply` for one engine run: the top-k experts of its
+    first `n` calls (the first steps' layers), to count the routing
+    entries two arms send to other experts, and the input of its first
+    call (the first step's layer 0)."""
+
+    def __init__(self, n=2 * 2):
+        self.n, self.top_e, self.x0 = n, [], None
+
+    def __enter__(self):
+        from repro_torch.models import moe as TM
+        self.inner = TM.moe_apply
+
+        def recording(cfg, p, x, **kw):
+            if self.x0 is None:
+                self.x0 = x.float().cpu()
+            if len(self.top_e) < self.n:
+                _, _, te, _ = TM.route(cfg, p["router"],
+                                       x.reshape(-1, x.shape[-1]),
+                                       kw["lamp_site"])
+                self.top_e.append(te.cpu())
+            return self.inner(cfg, p, x, **kw)
+        TM.moe_apply = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as TM
+        TM.moe_apply = self.inner
+
+
+def moe_arms(params, cfg, checks, tag):
+    """The engine's stream with kernel "cuda" under `Shadow` and with
+    kernel "gather" (module docstring, phase moe): fills `checks` (each
+    name prefixed with `tag`), returns (the line's fields, the cuda arm's
+    tokens by request). First tokens are gated in FP32 only: in bfloat16
+    the attention outputs, which agree to rtol 2e-5, round to bfloat16
+    apart in a few elements, a router logit then moves, and capacity
+    passes the move on to other tokens (the first steps' routing entries
+    apart are printed). In both dtypes the first step's layer-0 MoE
+    inputs, which only layer 0's attention separates, are gated token by
+    token (MOE_INPUT_REL)."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import transformer as TT
+    site = TT._kq_site(cfg, True)
+    with RoutingRecorder() as crec:
+        eng, outs, wall, shadow, cl = shadow_run(params, cfg)
+    PA._wrapper.launches = PA._decode_wrapper.launches = 0
+    with RoutingRecorder() as grec:
+        geng, gouts, gwall = run_engine(params, cfg, kernel="gather")
+    gl = {"mixed": PA._wrapper.launches, "decode": PA._decode_wrapper.launches}
+    co = {o.req_id: o.tokens for o in outs}
+    go = {o.req_id: o.tokens for o in gouts}
+    n_tok = sum(len(t) for t in co.values())
+    same = sum(a == b for r in co for a, b in zip(co[r], go.get(r, [])))
+    first = sum(co[r][:1] == go[r][:1] for r in co if r in go)
+    a0 = crec.x0.reshape(-1, crec.x0.shape[-1])
+    b0 = grec.x0.reshape(-1, a0.shape[-1])
+    in_rel = float(((a0 - b0).norm(dim=-1)
+                    / b0.norm(dim=-1).clamp(min=1e-30)).max())
+    checks[f"{tag}first_moe_inputs_within_rounding"] = (
+        a0.shape == b0.shape and in_rel <= MOE_INPUT_REL)
+    checks[f"{tag}arms_served_every_request"] = len(co) == len(go) == 8
+    checks[f"{tag}cuda_arm_launches"] = cl["mixed"] == eng.mixed_steps * \
+        cfg.n_layers * PA.passes(site) > 0
+    checks[f"{tag}cuda_arm_every_call_held"] = (shadow.apart == 0
+                                                and shadow.calls > 0)
+    checks[f"{tag}gather_arm_no_launches"] = sum(gl.values()) == 0
+    if cfg.dtype == "float32":
+        checks[f"{tag}first_tokens_equal"] = first == len(co)
+    return {"dtype": cfg.dtype,
+            "cuda": {"steps": eng.total_steps, "wall_s": wall,
+                     "tokens_per_s": eng.generated_tokens / wall,
+                     "launches": cl, "shadow": shadow_line(shadow)},
+            "gather": {"steps": geng.total_steps, "wall_s": gwall,
+                       "tokens_per_s": geng.generated_tokens / gwall,
+                       "launches": gl},
+            "first_moe_inputs": {
+                "tokens": a0.shape[0], "max_token_rel_l2": in_rel,
+                "max_abs_err": float((a0 - b0).abs().max()),
+                "elements_apart": int((a0 != b0).sum())},
+            "first_tokens_equal": f"{first}/{len(co)}",
+            "tokens_equal": f"{same}/{n_tok}",
+            "first_calls_routing_entries_apart": [
+                int((a != b).sum()) for a, b in zip(crec.top_e, grec.top_e)]
+            }, co
+
+
+def phase_moe():
+    """The MoE family on the card (module docstring)."""
+    import gc
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import AuditConfig
+    from repro_torch.serving.speculative import draft_model_config
+    t0 = time.perf_counter()
+    cfg = moe_2_layers()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = TT.init_params(cfg, 0, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = []
+    TT.map_params(params, leaves.append)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    L = cfg.n_layers
+    site = TT._kq_site(cfg, True)
+    dsite = TT._kq_site(draft_model_config(cfg), True)
+    checks = {}
+    # 1. one MoE layer, card against CPU
+    layer, checks["layer_card_vs_cpu"] = moe_layer_card_vs_cpu(cfg, params)
+    # 2. kernel arm (every call held to the plain version) against gather,
+    # in bfloat16 and with the same weights cast to FP32
+    arms, co = moe_arms(params, cfg, checks, "")
+    n_tok = sum(len(t) for t in co.values())
+    peak_bf16 = torch.cuda.max_memory_allocated()
+    fcfg = cfg.replace(dtype="float32", name=cfg.name + "-fp32")
+    fparams = TT.map_params(params, lambda t: t.float())
+    arms_fp32, _ = moe_arms(fparams, fcfg, checks, "fp32_")
+    del fparams
+    # 3. speculation on (fused, draft_len 4), under Shadow
+    seng, souts, swall, sshadow, scl = shadow_run(
+        params, cfg, speculative=True, draft_len=SPEC_DRAFT_LEN)
+    lc = seng.launch_counts
+    exp_mix = (lc["mixed"] + lc["prefill"] + lc["verify"]) * L * \
+        PA.passes(site)
+    exp_dec = lc["draft"] * SPEC_DRAFT_LEN * L * PA.passes(dsite)
+    so = {o.req_id: o.tokens for o in souts}
+    checks["spec_every_request_finished"] = (
+        len(so) == 8 and all(o.finish_reason for o in souts))
+    checks["spec_launches"] = scl["mixed"] == exp_mix > 0 and \
+        scl["decode"] == exp_dec > 0
+    checks["spec_every_call_held"] = sshadow.apart == 0 and sshadow.calls > 0
+    spec_same = sum(a == b for r in co for a, b in zip(co[r], so.get(r, [])))
+    spec = {"steps": seng.total_steps, "spec_rounds": seng.spec_rounds,
+            "acceptance": seng.stats()["spec_acceptance_rate"],
+            "wall_s": swall, "launches": scl,
+            "expected": {"mixed": exp_mix, "decode": exp_dec},
+            "shadow": shadow_line(sshadow),
+            "tokens_equal_spec_off": f"{spec_same}/{n_tok}"}
+    # 4. the audit at rate 1 on two requests of 4 new tokens
+    _, plain_toks = serve_few(params, cfg, 2, 4)
+    aeng, audit_toks = serve_few(params, cfg, 2, 4,
+                                 audit=AuditConfig(rate=1.0))
+    a = aeng.stats()["audit"]
+    rerr = a["layer_router_err"]
+    checks["audit_tokens_unchanged"] = audit_toks == plain_toks
+    checks["audit_every_step"] = a["audited_steps"] == aeng.total_steps > 0
+    checks["router_err_finite_positive"] = (
+        len(rerr) == L and all(np.isfinite(e) and e > 0 for e in rerr))
+    audit = {"steps": aeng.total_steps, "audited_rows": a["audited_rows"],
+             "layer_router_err": rerr, "layer_kq_err": a["layer_kq_err"],
+             "layer_cum_err": a["layer_cum_err"],
+             "logit_rel_err": a["logit_rel_err"], "flip_rate": a["flip_rate"]}
+    print(f"moe: kept_frac {[r['kept_frac'] for r in layer]} at buckets "
+          f"{[r['bucket'] for r in layer]}; cuda/gather first-step layer-0 "
+          f"MoE input rel {arms['first_moe_inputs']['max_token_rel_l2']:.3g}"
+          f" (FP32 {arms_fp32['first_moe_inputs']['max_token_rel_l2']:.3g}),"
+          f" first tokens "
+          f"{arms['first_tokens_equal']}, tokens {arms['tokens_equal']} "
+          f"(FP32: {arms_fp32['first_tokens_equal']}, "
+          f"{arms_fp32['tokens_equal']}), spec=off "
+          f"{spec['tokens_equal_spec_off']};"
+          f" router_err {rerr}", flush=True)
+    emit("moe", config=cfg.name, n_layers=L, d_model=cfg.d_model,
+         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, hd=cfg.hd,
+         n_experts=cfg.n_experts, top_k=cfg.top_k, d_ff=cfg.d_ff,
+         vocab=cfg.vocab, dtype=cfg.dtype, kq_rule=site.rule,
+         router_rule=cfg.lamp.router.rule, params_init_s=init_s,
+         param_bytes=param_bytes, max_memory_allocated_bf16=peak_bf16,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         layer=layer, arms=arms, arms_fp32=arms_fp32, spec=spec, audit=audit,
+         seconds=time.perf_counter() - t0, checks=checks,
+         ok=all(checks.values()))
+    require(all(checks.values()), f"moe phase failed its checks: {checks}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_device()
@@ -2081,6 +2379,7 @@ def main() -> int:
     phase_policy(params, cfg)
     phase_audit(params, cfg, ref_tokens)
     phase_phased(params, cfg, ref_tokens)
+    phase_moe()
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows + micro_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,10 @@ becomes a Python loop over those stacks. The paged KV arena is a pair of
 (L, n_blocks, block_size, Hkv, hd) tensors; block 0 is the null block that
 padding points at and writes into.
 
+The MoE family's FFN is ``models.moe``: the window steps dispatch with
+capacity over the whole (B, W) bucket, padding included, as the JAX
+package's do; `paged_decode_step` is dropless unless asked otherwise.
+
 Window steps (`paged_mixed_step`, `paged_prefill_window`,
 `paged_verify_window`) attend through
 ``kernels.paged_attention.paged_mixed_attention``; the single-token
@@ -29,9 +33,10 @@ import torch
 from repro_torch.core.policy import LampSite
 
 from . import layers as LY
+from . import moe as MOE
 from .layers import KERNELS, check_kernel  # noqa: F401 (the engine's, the CLI's)
 
-FAMILIES = ("dense", "gpt2")
+FAMILIES = ("dense", "moe", "gpt2")
 
 
 def resolve_device(device) -> torch.device:
@@ -71,11 +76,13 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
         attn["qn_w"] = torch.zeros((L, hd))
         attn["kn_w"] = torch.zeros((L, hd))
     gated = cfg.act in ("swiglu", "geglu")
-    blocks: Dict[str, Any] = {
-        "attn": attn,
-        "mlp": {"wi": _normal(gen, (L, d, 2 * ff if gated else ff), d ** -0.5),
-                "wo": _normal(gen, (L, ff, d), ff ** -0.5)},
-    }
+    blocks: Dict[str, Any] = {"attn": attn}
+    if cfg.family == "moe":
+        blocks["moe"] = MOE.moe_params(cfg, gen, lead=(L,))
+    else:
+        blocks["mlp"] = {
+            "wi": _normal(gen, (L, d, 2 * ff if gated else ff), d ** -0.5),
+            "wo": _normal(gen, (L, ff, d), ff ** -0.5)}
     params: Dict[str, Any] = {"embed": {"tok": _normal(gen, (cfg.vocab, d), 0.02)},
                               "blocks": blocks}
     if cfg.pos == "learned":
@@ -90,7 +97,11 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
         blocks["ln1_w"], blocks["ln2_w"] = torch.zeros((L, d)), torch.zeros((L, d))
         params["lnf_w"] = torch.zeros((d,))
     dt = LY.dtype_of(cfg)
-    return map_params(params, lambda t: t.to(device=device, dtype=dt))
+    params = map_params(params, lambda t: t.to(device=device, dtype=dt))
+    if cfg.family == "moe":
+        # the router stays FP32 in every model dtype, as in the JAX package
+        params["blocks"]["moe"]["router"] = blocks["moe"]["router"].to(device)
+    return params
 
 
 def map_params(tree, fn):
@@ -124,6 +135,37 @@ def _serving_site(site: LampSite) -> LampSite:
 def _kq_site(cfg, use_lamp: bool) -> LampSite:
     kq = cfg.lamp.kq
     return _serving_site(kq if use_lamp and kq.enabled else LampSite(enabled=False))
+
+
+def _router_site(cfg, use_lamp: bool) -> LampSite:
+    """The MoE router's site: on with LAMP, off without (the FP32 rung),
+    as the JAX package's `_ctx` has it."""
+    r = cfg.lamp.router
+    return r if use_lamp and r.enabled else LampSite(enabled=False)
+
+
+def _ffn(cfg, p_l, h, r_site: LampSite, *, dropless: bool = False):
+    """The block's FFN: the MoE dispatch over the whole bucket `h` for the
+    MoE family, the MLP for the others."""
+    if cfg.family == "moe":
+        m, _ = MOE.moe_apply(cfg, p_l["moe"], h, lamp_site=r_site,
+                             dropless=dropless)
+        return m
+    return LY.mlp_apply(cfg, p_l["mlp"], h)
+
+
+def _last_pad(valid_tok: torch.Tensor):
+    """(whether any token of the (B, W) window is padding, the B-major flat
+    index of the last padded token), both on the device, with no sync.
+    Every padded token writes the null block's slot 0; the JAX package's
+    scatter leaves the last of them there, and the MoE family routes
+    padded tokens (a pad row attends to that slot), so for that family
+    the port writes that one last explicitly (a write with duplicate
+    indices picks no winner on the card). The other families' padded
+    outputs are discarded, and they skip it."""
+    pad = ~valid_tok.reshape(-1)
+    flipped = torch.flip(pad, (0,)).to(torch.int32)
+    return pad.any(), pad.numel() - 1 - torch.argmax(flipped)
 
 
 def paged_prefill(cfg, params, tokens, arena, block_tables, lengths, *,
@@ -168,7 +210,7 @@ def paged_verify_window(cfg, params, tokens, arena, block_tables, starts,
 def paged_decode_step(cfg, params, arena, block_tables, lengths, tokens, *,
                       use_lamp: bool = True, per_layer: bool = False,
                       taus: Optional[torch.Tensor] = None,
-                      kernel: str = "cuda"):
+                      kernel: str = "cuda", moe_dropless: bool = True):
     """One continuous-batch decode step over the paged arena.
 
     tokens: (R, 1) last sampled token per row; lengths: (R,) int32 cache
@@ -177,12 +219,15 @@ def paged_decode_step(cfg, params, arena, block_tables, lengths, tokens, *,
     carries the per-layer KQ thresholds; the LAMP rule comes from `cfg` (the
     speculative draft passes its draft config). Writes the arena in place
     and returns (logits (R, 1, V), arena, (n_selected, n_valid)): counts
-    (R,), or (L, R) with `per_layer`. `kernel`: the attention path."""
+    (R,), or (L, R) with `per_layer`. `kernel`: the attention path. The MoE
+    dispatch is dropless unless `moe_dropless` is False (then the bucket's
+    width-1 capacity, ``moe.capacity``)."""
     check_kernel(kernel)
     L = cfg.n_layers
     dev = tokens.device
     x = LY.embed(cfg, params["embed"], tokens.long(), lengths.long()[:, None])
     site = _kq_site(cfg, use_lamp)
+    r_site = _router_site(cfg, use_lamp)
     if taus is None:
         taus = torch.full((L,), float(site.tau), dtype=torch.float32, device=dev)
     nsel_l, nval_l = [], []
@@ -195,7 +240,7 @@ def paged_decode_step(cfg, params, arena, block_tables, lengths, tokens, *,
             tau=taus[l], kernel=kernel)
         x = x + a
         h = LY.apply_norm(cfg, x, p_l, "ln2")
-        x = x + LY.mlp_apply(cfg, p_l["mlp"], h)
+        x = x + _ffn(cfg, p_l, h, r_site, dropless=moe_dropless)
         nsel_l.append(nsel)
         nval_l.append(nval)
     x = LY.apply_norm(cfg, x, {"lnf_w": params["lnf_w"],
@@ -221,7 +266,13 @@ def paged_mixed_step(cfg, params, tokens, arena, block_tables, starts,
     Writes the window's K/V into `arena` in place and returns (logits,
     arena, (n_selected, n_valid)): logits (B, 1, V) at each row's last
     valid position, or (B, W, V) with `all_logits`; counts (B,), or (L, B)
-    with `per_layer`. `kernel`: the attention path (module docstring)."""
+    with `per_layer`. `kernel`: the attention path (module docstring).
+
+    The MoE dispatch runs with capacity over the whole (B, W) bucket, pad
+    rows and pad slots included, so its routing depends on the bucket's
+    composition, as in the JAX package. For that family the attention computes every window
+    position (the kernel is given qlens W), so the padded tokens' hidden
+    states, which take capacity, are the gather path's on both paths."""
     B = tokens.shape[0]
     x, arena, counts = _paged_window_apply(
         cfg, params, tokens, arena, block_tables, starts, lengths,
@@ -255,11 +306,19 @@ def _paged_window_apply(cfg, params, tokens, arena, block_tables, starts,
     positions = starts_l[:, None] + torch.arange(W, device=dev)[None, :]  # (B, W)
     x = LY.embed(cfg, params["embed"], tokens.long(), positions)
     site = _kq_site(cfg, use_lamp)
+    r_site = _router_site(cfg, use_lamp)
     valid_tok = torch.arange(W, device=dev)[None, :] < lengths[:, None]
     blk_idx = torch.clamp(positions // bs, 0, n_max - 1)
     blk = torch.where(valid_tok, torch.gather(block_tables.long(), 1, blk_idx), 0)
     off = torch.where(valid_tok, positions % bs, 0)
     qmask = valid_tok.to(torch.float32)
+    moe = cfg.family == "moe"
+    if moe:
+        has_pad, last_pad = _last_pad(valid_tok)
+    # the MoE family routes every window position, padding included, so
+    # attention computes them all, as the gather path does (the kernel
+    # writes zeros past the live queries it is given)
+    attn_lens = torch.full_like(lengths, W) if moe else lengths
     if taus is None:
         taus = torch.full((L,), float(site.tau), dtype=torch.float32, device=dev)
     # KQ products inside the causal (and window) mask, per query and all heads
@@ -274,12 +333,16 @@ def _paged_window_apply(cfg, params, tokens, arena, block_tables, starts,
         q, k, v = LY._project_qkv(cfg, p_l["attn"], h, positions)
         # in place: the window's K/V land in the arena slots its block table
         # names (the JAX package returns an updated copy instead); padded
-        # tokens all write the null block
+        # tokens all write the null block's slot 0 (for the MoE family the
+        # last of them last)
         ck[blk, off] = k.to(ck.dtype)
         cv[blk, off] = v.to(cv.dtype)
+        for c, new in ((ck, k), (cv, v)) if moe else ():
+            c[0, 0] = torch.where(has_pad, new.reshape(B * W, *new.shape[2:])
+                                  [last_pad].to(c.dtype), c[0, 0])
         qh = q.transpose(1, 2).float().contiguous()
         o, nsel_rows = attend(
-            qh, ck, cv, block_tables, starts, lengths, site, tau=taus[l],
+            qh, ck, cv, block_tables, starts, attn_lens, site, tau=taus[l],
             window=cfg.window)
         if site.enabled:
             nsel_l.append(torch.sum(nsel_rows * qmask, dim=1))
@@ -290,7 +353,7 @@ def _paged_window_apply(cfg, params, tokens, arena, block_tables, starts,
         o = o.transpose(1, 2).reshape(B, W, -1).to(x.dtype)
         x = x + o @ p_l["attn"]["wo"]
         h = LY.apply_norm(cfg, x, p_l, "ln2")
-        x = x + LY.mlp_apply(cfg, p_l["mlp"], h)
+        x = x + _ffn(cfg, p_l, h, r_site)
     x = LY.apply_norm(cfg, x, {"lnf_w": params["lnf_w"],
                                "lnf_b": params.get("lnf_b")}, "lnf")
     nsel, nval = torch.stack(nsel_l), torch.stack(nval_l)
@@ -318,7 +381,14 @@ def paged_audit_window(cfg, params, tokens, arena, block_tables, starts,
                 separately;
       * shadow: LAMP attention on the ref stream's own q/k/v, against the
                 ref attention on them: layer l's local KQ-site error,
-                free of what the layers below passed up.
+                free of what the layers below passed up. For the MoE
+                family also the router at its LAMP site on the ref
+                stream's FFN input, against the ref stream's router:
+                layer l's local router-site error.
+
+    The lamp stream's router takes the router site when its KQ site is
+    on, the ref stream's never; every MoE dispatch is over the whole
+    bucket with capacity, as in the window steps.
 
     Attention runs the gather path (``core.attention`` in the order
     "dot_ps", the order held against the JAX package) on every device and
@@ -331,13 +401,16 @@ def paged_audit_window(cfg, params, tokens, arena, block_tables, starts,
     block-table span into a copy of its own (B x n_max * block_size keys a
     layer, not the whole arena) and writes the window's K/V into that copy
     at flat index = absolute position, cast to the arena's dtype as the
-    serving step writes it; the span is then widened to FP32.
+    serving step writes it, and for the MoE family the stream's last
+    padded token's K/V at every span position that is the null block's
+    slot 0 (as the JAX package's write of the whole window leaves it);
+    the span is then widened to FP32.
 
     `row_mask` (B,) zeroes padded bucket rows out of every reduction.
     Returns float32 tensors on the device:
       kq_err / router_err / cum_err : (L,) mean per-token relative L2 error
-        (local KQ site, local router site -- 0 for the dense families --
-        and cumulative hidden-state drift);
+        (local KQ site, local router site -- 0 for the dense families and
+        with the router site off -- and cumulative hidden-state drift);
       logit_rel / logit_max_abs : (B,) final-position logit error;
       flip : (B,) 1.0 where the greedy argmax token differs;
       topk : (B,) |top-k(lamp) & top-k(ref)| / k.
@@ -353,7 +426,9 @@ def paged_audit_window(cfg, params, tokens, arena, block_tables, starts,
     S = n_max * bs
     positions = starts.long()[:, None] + torch.arange(W, device=dev)[None, :]
     site = _kq_site(cfg, True)
+    r_site = _router_site(cfg, True)
     off = LampSite(enabled=False)
+    audit_router = cfg.family == "moe" and r_site.enabled
     valid_tok = torch.arange(W, device=dev)[None, :] < lengths[:, None]
     # the window's live tokens: (row, window slot) and their flat index in
     # the row's gathered span, which is their absolute position
@@ -374,11 +449,21 @@ def paged_audit_window(cfg, params, tokens, arena, block_tables, starts,
         den = torch.sqrt(torch.sum(bf ** 2, dim=-1)) + 1e-30
         return torch.sum((num / den) * w) / wsum
 
+    # for the MoE family, span positions that are the null block's slot 0,
+    # where the stream's last padded token lands (``_last_pad``)
+    if cfg.family == "moe":
+        has_pad, last_pad = _last_pad(valid_tok)
+        null0 = ((bt.repeat_interleave(bs, dim=1) == 0)
+                 & (torch.arange(S, device=dev) % bs == 0)[None, :]) & has_pad
+
     def span(arena_l, new):
         # the rows' block-table spans, copied, with this stream's window
         # written at its positions; widened to FP32 as (B, H, S, hd)
         t = arena_l[bt].reshape(B, S, Hkv, hd)
         t[rows_i, flat_i] = new[rows_i, cols_i].to(t.dtype)
+        if cfg.family == "moe":
+            pad_kv = new.reshape(B * W, Hkv, hd)[last_pad].to(t.dtype)
+            t = torch.where(null0[:, :, None, None], pad_kv, t)
         t = t.to(torch.float32).transpose(1, 2)
         return t.repeat_interleave(H // Hkv, dim=1) if H != Hkv else t
 
@@ -405,17 +490,26 @@ def paged_audit_window(cfg, params, tokens, arena, block_tables, starts,
         o = attn(qh, kh, vh, lamp_site, tau_l)
         xc = xc + flat(o).to(xc.dtype) @ p_l["attn"]["wo"]
         h2 = LY.apply_norm(cfg, xc, p_l, "ln2")
-        return xc + LY.mlp_apply(cfg, p_l["mlp"], h2), (qh, kh, vh, o)
+        m = _ffn(cfg, p_l, h2, r_site if lamp_site.enabled else off)
+        return xc + m, (qh, kh, vh, o, h2, m)
 
     x0 = LY.embed(cfg, params["embed"], tokens.long(), positions)
     x_l = x_r = x0
-    kq_err, cum_err = [], []
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    kq_err, router_err, cum_err = [], [], []
     for l in range(L):
         p_l = layer_params(params["blocks"], l)
         x_l, _ = arm(x_l, p_l, l, site, taus[l])
-        x_r, (qh_r, kh_r, vh_r, o_r) = arm(x_r, p_l, l, off, taus[l])
+        x_r, (qh_r, kh_r, vh_r, o_r, h2_r, m_r) = arm(x_r, p_l, l, off,
+                                                      taus[l])
         o_s = attn(qh_r, kh_r, vh_r, site, taus[l])
         kq_err.append(werr(flat(o_s), flat(o_r)))
+        if audit_router:
+            # the ref stream's own FFN output is the router-off arm
+            m_s = _ffn(cfg, p_l, h2_r, r_site)
+            router_err.append(werr(m_s, m_r))
+        else:
+            router_err.append(zero)
         cum_err.append(werr(x_l, x_r))
 
     last = torch.clamp(lengths.long(), min=1) - 1
@@ -446,7 +540,7 @@ def paged_audit_window(cfg, params, tokens, arena, block_tables, starts,
     topk = torch.mean((idx_l[:, :, None] == idx_r[:, None, :]).any(-1)
                       .to(torch.float32), dim=-1)
     return {"kq_err": torch.stack(kq_err),
-            "router_err": torch.zeros((L,), dtype=torch.float32, device=dev),
+            "router_err": torch.stack(router_err),
             "cum_err": torch.stack(cum_err),
             "logit_rel": logit_rel, "logit_max_abs": logit_max_abs,
             "flip": flip, "topk": topk}

@@ -31,7 +31,8 @@ assert micro | {"repro_torch.launch.kernels_micro"} <= set(names), names
 obs = {"repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.tracing",
        "repro_torch.obs.audit", "repro_torch.obs.error_model",
        "repro_torch.serving.faults",
-       "repro_torch.serving.policy", "repro_torch.serving.sampling"}
+       "repro_torch.serving.policy", "repro_torch.serving.sampling",
+       "repro_torch.models.moe"}
 assert obs <= set(names), names
 for name in names:
     importlib.import_module(name)
