@@ -168,6 +168,25 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            rate 1 on two requests of 4 new tokens: tokens unchanged,
            layer_router_err finite and > 0 in both layers; init seconds,
            parameter bytes, max_memory_allocated and the phase's seconds
+  paper    the paper's evaluation path (transformer.forward; plain
+           PyTorch, no kernel): stochastic rounding at mu 4 and 7 and
+           uniforms, 4 M values each, bit-equal to the CPU's; gpt2-small
+           at its published widths (12 layers, d 768, vocab 50257), 2 x
+           1024 Markov tokens, seed 0, QK_GAIN 2 on wq / wk: the FP32
+           reference, uniform PS(4), LAMP (strict, mu 4, tau 0.1, g 1) and
+           the random control, each with KL, flip rate, recompute rate,
+           perplexity, ms a forward and max_memory_allocated; gated on
+           finite values, uniform's rate 0, 0 < rate < 1 for LAMP and the
+           control, LAMP's KL below uniform's, and the control's counts a
+           (row, query) equal to the strict rule's on every layer's
+           inputs. Cut to 2 layers at 256 tokens, card against CPU: FP32
+           logits within PAPER_FP32_REL, LAMP logits within
+           PAPER_LOGIT_REL (of the largest) and every PAPER_CONTROLS arm
+           beyond it, and on the card's own q, k, v per layer: strict
+           counts within 1 a (row, query), relaxed exact, attention_lamp's
+           outputs within PAPER_FP32_REL on rows whose counts agree,
+           chunked_attention_lamp's two-pass count equal to
+           attention_lamp's relaxed one and its one-pass count at least it
 
 The loud rule holds for every engine run of every phase but the ladder
 exhaustion run: no recovery through the gather or FP32 rung (they run the
@@ -2352,6 +2371,260 @@ def phase_moe():
     require(all(checks.values()), f"moe phase failed its checks: {checks}")
 
 
+# The paper's evaluation path (phase paper). LAMP as in the paper's figure
+# 1: the strict rule at mu 4, tau 0.1, granularity 1; uniform PS(4) is the
+# strict rule at a tau that selects nothing; the random control takes the
+# strict rule's counts a row at random positions.
+PAPER_SITE = dict(mu=4, tau=0.1, granularity=1)
+PAPER_CPU_LAYERS, PAPER_CPU_SEQ = 2, 256
+# card against CPU, logits of the 2-layer model, the largest difference
+# over the largest logit. FP32 arm: each device sums the FP32 matmuls in its
+# own order (about 1e-6 relative a layer). LAMP arm: q and k then differ in
+# their last bits, so a strict selection near tau can fall the other way in
+# one device's forward, which moves that product by up to half a PS(4) step
+# (2^-5 of it) and the logits by up to about 1e-2 of the largest (4.3e-3
+# on an H100: one layer-0 selection of 48,526 apart)
+PAPER_FP32_REL = 1e-4
+PAPER_LOGIT_REL = 1e-2
+# control readings of that gate, each held above it: what a wrong card path
+# scores against the CPU's LAMP logits (the FP32 arm or uniform PS(4) in
+# LAMP's place, or LAMP at PS(5) in place of PS(4); 6.28e-2, 0.566 and
+# 6.34e-2 on an H100)
+PAPER_CONTROLS = {"fp32": None, "uniform_ps4": ("strict", 4, None),
+                  "lamp_ps5": ("strict", 5, 0.1)}
+# the online rule's KV block at seq 256: 8 blocks, q-tiled (256 / 8 >= 32)
+PAPER_BLOCK = 32
+
+
+class AttentionCapture:
+    """Records the inputs of every ``core.attention.attention_lamp`` call
+    that ``layers.attention_sublayer`` makes (it looks the function up on
+    the module)."""
+
+    def __init__(self):
+        from repro_torch.core import attention as CA
+        self.CA, self.orig = CA, CA.attention_lamp
+        self.calls, self.selected = [], []
+
+    def __enter__(self):
+        def wrapped(q, k, v, site, **kw):
+            self.calls.append((q, k, v, site, kw))
+            out = self.orig(q, k, v, site, **kw)
+            self.selected.append(float(out[1].n_selected.sum()))
+            return out
+        self.CA.attention_lamp = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.CA.attention_lamp = self.orig
+
+
+def paper_forward(cfg, params, tokens, policy):
+    """(logits, aux, ms) of one forward under `policy` (None: FP32)."""
+    from repro_torch.core.policy import LampPolicy
+    from repro_torch.models import transformer as TT
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if policy is None:
+        logits, aux = TT.forward(cfg.replace(lamp=LampPolicy.disabled()),
+                                 params, tokens, use_lamp=False)
+    else:
+        logits, aux = TT.forward(cfg.replace(lamp=policy), params, tokens,
+                                 use_lamp=True)
+    torch.cuda.synchronize()
+    return logits, aux, 1e3 * (time.perf_counter() - t0)
+
+
+def paper_card_vs_cpu(cfg, params, tokens, checks):
+    """gpt2-small cut to 2 layers at seq 256, card against CPU: logits of
+    the strict arm, beside the control readings of ``PAPER_CONTROLS``; per
+    layer, on the card's own q, k, v, attention_lamp on the card and on the
+    CPU: per-(row, query) counts (strict: 1 apart at most, the normalizer's
+    order; relaxed: exact) and outputs within ``PAPER_FP32_REL`` of the
+    largest on the rows whose counts agree; and on the card
+    chunked_attention_lamp's two-pass count equal to attention_lamp's
+    relaxed count and its one-pass count at least that."""
+    from repro_torch.core import attention as CA
+    from repro_torch.core.policy import LampPolicy, LampSite
+    from repro_torch.launch import paper_figs as PF
+    from repro_torch.models import transformer as TT
+    L, S = PAPER_CPU_LAYERS, PAPER_CPU_SEQ
+    cfg2 = cfg.replace(n_layers=L)
+    p2 = dict(params, blocks=TT.map_params(params["blocks"], lambda t: t[:L]))
+    toks = tokens[:, :S]
+    strict = LampPolicy.paper_default(rule="strict", **PAPER_SITE)
+    cpu_params = TT.map_params(p2, lambda t: t.cpu())
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    card_fp32 = paper_forward(cfg2, p2, toks, None)[0].cpu()
+    fp32_rel = rel(card_fp32, TT.forward(cfg2, cpu_params, toks.cpu())[0])
+    with AttentionCapture() as cap:
+        card, _, _ = paper_forward(cfg2, p2, toks, strict)
+    with AttentionCapture() as cpu_cap:
+        cpu, _ = TT.forward(cfg2.replace(lamp=strict), cpu_params,
+                            toks.cpu(), use_lamp=True)
+    card = card.cpu()
+    logit_rel = rel(card, cpu)
+    controls = {}
+    for name, arm in PAPER_CONTROLS.items():
+        if arm is None:
+            got = card_fp32
+        else:
+            rule, mu, tau = arm
+            pol = LampPolicy.paper_default(
+                rule=rule, mu=mu, granularity=PAPER_SITE["granularity"],
+                tau=PF._UNIFORM_TAU if tau is None else tau)
+            got = paper_forward(cfg2, p2, toks, pol)[0]
+        controls[name] = rel(got, cpu)
+    layers = []
+    for q, k, v, _, kw in cap.calls:
+        row = {}
+        for rule in ("strict", "relaxed"):
+            site = LampSite(rule=rule, **PAPER_SITE)
+            (oc, ac), (oh, ah) = [
+                CA.attention_lamp(*(t.to(d) for t in (q, k, v)), site,
+                                  reduce=False, window=kw.get("window"))
+                for d in (DEVICE, "cpu")]
+            n = [ac.n_selected.cpu(), ah.n_selected]
+            agree = (n[0] == n[1])[:, None, :, None]     # (B, 1, Tq, 1)
+            apart = ((oc.cpu() - oh).abs() * agree).max() / oh.abs().max()
+            row[rule] = {"selected": float(n[0].sum()),
+                         "max_apart": float((n[0] - n[1]).abs().max()),
+                         "rows_apart": int((n[0] != n[1]).sum()),
+                         "out_max_abs_over_max": float(apart)}
+        relaxed = LampSite(rule="relaxed", **PAPER_SITE)
+        _, full = CA.attention_lamp(q, k, v, relaxed)
+        _, two = CA.chunked_attention_lamp(q, k, v, relaxed, block=PAPER_BLOCK)
+        _, one = CA.chunked_attention_lamp(q, k, v, relaxed, block=PAPER_BLOCK,
+                                           onepass=True)
+        row["relaxed_selected"] = float(full.n_selected)
+        row["twopass_selected"] = float(two.n_selected)
+        row["onepass_selected"] = float(one.n_selected)
+        layers.append(row)
+    checks["cpu_layers_captured"] = len(layers) == L
+    checks["cpu_fp32_logits_within_tol"] = fp32_rel <= PAPER_FP32_REL
+    checks["cpu_logits_within_tol"] = (
+        bool(torch.isfinite(card).all()) and logit_rel <= PAPER_LOGIT_REL)
+    checks["logit_gate_below_every_control"] = all(
+        c > PAPER_LOGIT_REL for c in controls.values())
+    checks["cpu_strict_counts_within_1"] = all(
+        r["strict"]["max_apart"] <= 1 for r in layers)
+    checks["cpu_relaxed_counts_exact"] = all(
+        r["relaxed"]["max_apart"] == 0 for r in layers)
+    checks["cpu_attention_outputs_within_fp32_tol"] = all(
+        r[rule]["out_max_abs_over_max"] <= PAPER_FP32_REL
+        for r in layers for rule in ("strict", "relaxed"))
+    checks["twopass_counts_equal_relaxed"] = all(
+        r["twopass_selected"] == r["relaxed_selected"] > 0 for r in layers)
+    checks["onepass_counts_at_least_twopass"] = all(
+        r["onepass_selected"] >= r["twopass_selected"] for r in layers)
+    return {"n_layers": L, "seq": S, "fp32_logit_max_abs_over_max": fp32_rel,
+            "logit_max_abs_over_max": logit_rel,
+            "logit_gate": PAPER_LOGIT_REL, "controls_against_cpu_lamp": controls,
+            "own_forward_selected": {"card": cap.selected,
+                                     "cpu": cpu_cap.selected},
+            "layers": layers}
+
+
+def phase_paper():
+    """The paper's evaluation path on the card (module docstring)."""
+    import gc
+    from repro_torch.core import attention as CA
+    from repro_torch.core import numerics as CN
+    from repro_torch.core import prng
+    from repro_torch.core.policy import LampPolicy
+    from repro_torch.launch import paper_figs as PF
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {}
+    # 1. stochastic rounding and uniform, card against CPU, bit for bit
+    gen = torch.Generator().manual_seed(0)
+    n = 1 << 22
+    x = torch.randn(n, generator=gen) * torch.pow(
+        10.0, torch.randint(-30, 30, (n,), generator=gen).float())
+    x[:4] = torch.tensor([float("inf"), float("-inf"), float("nan"), 0.0])
+    bits = {}
+    for mu in (4, 7):
+        want = CN.round_to_mantissa_stochastic(x, mu, prng.PRNGKey(mu))
+        got = CN.round_to_mantissa_stochastic(x.to(DEVICE), mu,
+                                              prng.PRNGKey(mu, DEVICE)).cpu()
+        bits[f"sr_mu{mu}_apart"] = int(
+            (got.view(torch.int32) != want.view(torch.int32)).sum())
+    u = [prng.uniform(prng.PRNGKey(1, d), (4, n // 4)).cpu()
+         for d in (DEVICE, "cpu")]
+    bits["uniform_apart"] = int(
+        (u[0].view(torch.int32) != u[1].view(torch.int32)).sum())
+    checks["sr_and_uniform_bit_equal"] = not any(bits.values())
+    # 2. gpt2-small at published widths: FP32, uniform PS(4), LAMP, random
+    sc = PF.SCALES["full"]
+    cfg, params = PF.build_model(sc.small, seed=0, device=DEVICE)
+    tokens = PF.make_batches(cfg, sc, n_batches=1, device=DEVICE)[0]["tokens"]
+    paper_forward(cfg, params, tokens, None)          # warm-up (cuBLAS)
+    torch.cuda.reset_peak_memory_stats()
+    ref, _, ref_ms = paper_forward(cfg, params, tokens, None)
+    arms = {}
+    for name, rule, tau in (("uniform", "strict", PF._UNIFORM_TAU),
+                            ("lamp", "strict", PAPER_SITE["tau"]),
+                            ("random", "random", PAPER_SITE["tau"])):
+        pol = LampPolicy.paper_default(rule=rule, **dict(PAPER_SITE, tau=tau))
+        torch.cuda.reset_peak_memory_stats()
+        with AttentionCapture() as cap:
+            logits, aux, ms = paper_forward(cfg, params, tokens, pol)
+        kl, flip, nll = PF.logit_metrics(ref, logits, tokens)
+        arms[name] = {"kl": kl, "flip_rate": flip,
+                      "recompute_rate": float(aux["attn_lamp_rate"]),
+                      "perplexity": float(np.exp(nll)), "ms_per_forward": ms,
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                      "finite": bool(torch.isfinite(logits).all())}
+        del logits
+    # the control's counts a (row, query), over heads, against the strict
+    # rule's on each layer's inputs of the random arm's forward
+    apart = []
+    for q, k, v, site, kw in cap.calls:
+        plain = {k2: v2 for k2, v2 in kw.items() if k2 != "random_key"}
+        _, r = CA.attention_lamp(q, k, v, site, **dict(kw, reduce=False))
+        _, s_ = CA.attention_lamp(q, k, v, site, **dict(plain, reduce=False))
+        apart.append(int((r.n_selected != s_.n_selected).sum()))
+    checks["random_arm_keyed"] = all(
+        kw.get("random_key") is not None for *_, kw in cap.calls)
+    del cap
+    checks["every_value_finite"] = all(
+        a["finite"] and all(np.isfinite(v) for k, v in a.items()
+                            if k != "finite") for a in arms.values()) and \
+        bool(torch.isfinite(ref).all())
+    checks["uniform_selects_nothing"] = arms["uniform"]["recompute_rate"] == 0
+    checks["lamp_and_random_rates_in_0_1"] = all(
+        0 < arms[a]["recompute_rate"] < 1 for a in ("lamp", "random"))
+    checks["kl_lamp_below_uniform"] = arms["lamp"]["kl"] < arms["uniform"]["kl"]
+    checks["random_counts_equal_lamp_per_row"] = (
+        len(apart) == cfg.n_layers and not any(apart))
+    del ref
+    # 3. card against CPU, 2 layers at seq 256
+    cpu = paper_card_vs_cpu(cfg, params, tokens, checks)
+    print(f"paper: {cfg.name} {cfg.n_layers} layers x {sc.batch} x {sc.seq}"
+          f", mu 4 tau 0.1: KL "
+          f"uniform {arms['uniform']['kl']:.3e}, LAMP {arms['lamp']['kl']:.3e}"
+          f", random {arms['random']['kl']:.3e}; rate LAMP "
+          f"{arms['lamp']['recompute_rate']:.4f}; ms a forward FP32 "
+          f"{ref_ms:.1f}, LAMP {arms['lamp']['ms_per_forward']:.1f}; card vs "
+          f"CPU logits {cpu['logit_max_abs_over_max']:.3g} (gate "
+          f"{PAPER_LOGIT_REL:g}; controls "
+          + ", ".join(f"{k} {v:.3g}" for k, v in
+                      cpu["controls_against_cpu_lamp"].items()) + ")",
+          flush=True)
+    emit("paper", config=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_heads=cfg.n_heads, d_ff=cfg.d_ff, vocab=cfg.vocab, seq=sc.seq,
+         batch=sc.batch, qk_gain=PF.QK_GAIN, site=PAPER_SITE,
+         ref_ms_per_forward=ref_ms, arms=arms, bits=bits,
+         random_rows_apart=apart, card_vs_cpu=cpu,
+         seconds=time.perf_counter() - t0, checks=checks,
+         ok=all(checks.values()))
+    require(all(checks.values()), f"paper phase failed its checks: {checks}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_device()
@@ -2380,6 +2653,7 @@ def main() -> int:
     phase_audit(params, cfg, ref_tokens)
     phase_phased(params, cfg, ref_tokens)
     phase_moe()
+    phase_paper()
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows + micro_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,103 @@
+"""JAX's threefry random numbers, bit for bit, in PyTorch.
+
+The port draws the same random bits as the JAX package wherever the JAX
+package draws them: the engine's sampler (``serving/sampling.py``), the
+stochastic rounding of ``core/numerics.py`` and the random control arm of
+``core/attention.py``. JAX 0.9 with ``jax_threefry_partitionable`` on (its
+default) and 64-bit types off builds them as follows.
+
+  * A key is two 32-bit words. ``PRNGKey(seed)`` is (0, seed mod 2^32).
+  * ``threefry2x32`` hashes two counter words under a key (20 rounds).
+  * ``split(key, n)``: key i is the pair of words hashed from the counter
+    (i >> 32, i mod 2^32).
+  * ``bits(key, shape)``: element i of the flattened shape hashes the same
+    counter, and its 32 bits are the two output words xor-ed.
+  * ``uniform(key, shape)`` in [minval, 1): the bits shifted right by 9
+    under the exponent of 1.0, bitcast to float32, minus 1, scaled by
+    (1 - minval), plus minval, and raised to at least minval.
+
+Keys are int64 tensors of shape (2,) and words are int64 tensors holding
+32-bit values (PyTorch's uint32 kernels are sparse); everything is computed
+on the key's device. ``threefry2x32`` works on numpy uint32 arrays too,
+which the sampler uses to hash its keys on the host.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The threefry2x32 hash of JAX (``jax._src.prng``, 20 rounds) of the
+    counter words (x0, x1) under the key (k0, k1). Works on numpy uint32
+    arrays and on torch int64 tensors holding 32-bit values (the operands
+    broadcast); returns (y0, y1) of the same kind."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) & _M32) | (x1 >> (32 - r))
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def _hash_counters(k0, k1, n: int, device):
+    """The two threefry words of the counters 0 .. n-1 under (k0, k1),
+    which broadcast against the counters' trailing axis."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return threefry2x32(k0, k1, i >> 32, i & _M32)
+
+
+def _bits(key, n: int, device) -> torch.Tensor:
+    """Random bits for a flat shape of n under each of R keys given as two
+    host uint32 word arrays (R,): (R, n) int64 on `device`."""
+    k0 = torch.from_numpy(key[0].astype(np.int64)).to(device)[:, None]
+    k1 = torch.from_numpy(key[1].astype(np.int64)).to(device)[:, None]
+    y0, y1 = _hash_counters(k0, k1, n, device)
+    return y0 ^ y1
+
+
+def _uniform(bits: torch.Tensor, minval: float) -> torch.Tensor:
+    """``jax.random.uniform`` in [minval, 1) from 32 random bits, float32:
+    mantissa bits under the exponent of 1.0, minus 1, scaled, shifted."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    return torch.maximum(lo, f * (1.0 - lo) + lo)
+
+
+def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` with 64-bit types off: (0, seed mod
+    2^32) as an int64 tensor of shape (2,) on `device`."""
+    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
+                        device=device)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: (num, 2) int64 keys on key's
+    device."""
+    y0, y1 = _hash_counters(key[0], key[1], int(num), key.device)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.bits(key, shape)``: uint32 values in an int64 tensor of
+    `shape` on key's device."""
+    shape = tuple(shape)
+    y0, y1 = _hash_counters(key[0], key[1], math.prod(shape), key.device)
+    return (y0 ^ y1).reshape(shape)
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=minval)`` (maxval 1):
+    float32 of `shape` on key's device."""
+    return _uniform(bits(key, shape), minval)

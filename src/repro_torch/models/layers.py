@@ -1,4 +1,4 @@
-"""Shared model layers (port of ``repro/models/layers.py:27-123,245-306,
+"""Shared model layers (port of ``repro/models/layers.py:27-184,245-306,
 326-375``).
 
 Plain functions over parameter dictionaries, in the config dtype with FP32
@@ -12,6 +12,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import attention as A
+from repro_torch.core import prng
 from repro_torch.core.policy import LampSite
 from repro_torch.kernels import paged_attention as PA
 
@@ -99,6 +101,69 @@ def _project_qkv(cfg, p, x: torch.Tensor, positions: torch.Tensor):
         q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
         k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     return q, k, v
+
+
+def _repeat_kv(t: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return t
+    return torch.repeat_interleave(t, n_rep, dim=1)
+
+
+# the online softmax's KV block under attn_impl "chunked" (the JAX
+# sublayer's default)
+CHUNK_BLOCK = 512
+
+
+def attention_sublayer(cfg, p, x: torch.Tensor, *, positions: torch.Tensor,
+                       lamp_site: LampSite, attn_impl: str = "auto"):
+    """Full-sequence causal attention (the paper's evaluation, prefill),
+    over `cfg.window` keys where the config has one. Returns (out,
+    recompute rate as a 0-d tensor).
+
+    `attn_impl` "full" materializes the logits (``attention_lamp``, or
+    ``attention_reference`` with LAMP off); "chunked" runs the online
+    softmax over KV blocks of ``CHUNK_BLOCK`` keys, where LAMP takes the
+    relaxed rule whatever the site names and the site's `onepass` picks the
+    threshold; "auto" is "full" up to 2048 positions. The rule "random" is
+    the App C.4 control arm: the strict rule's counts at random positions,
+    under ``PRNGKey(0)`` in every layer."""
+    B, T, _ = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    q = q.transpose(1, 2)
+    k = _repeat_kv(k.transpose(1, 2), H // Hkv)
+    v = _repeat_kv(v.transpose(1, 2), H // Hkv)
+    window = cfg.window
+    if attn_impl == "auto":
+        attn_impl = "full" if max(T, k.shape[2]) <= 2048 else "chunked"
+    rate = torch.zeros((), dtype=torch.float32, device=x.device)
+    if attn_impl == "full":
+        if lamp_site.enabled:
+            if lamp_site.rule == "random":
+                out, aux = A.attention_lamp(
+                    q, k, v, lamp_site.replace(rule="strict"), window=window,
+                    random_key=prng.PRNGKey(0, x.device))
+            else:
+                out, aux = A.attention_lamp(q, k, v, lamp_site, window=window)
+            rate = aux.recompute_rate
+        else:
+            out = A.attention_reference(q, k, v, window=window)
+    elif attn_impl == "chunked":
+        if lamp_site.enabled:
+            site = lamp_site if lamp_site.rule == "relaxed" \
+                else lamp_site.replace(rule="relaxed")
+            out, aux = A.chunked_attention_lamp(q, k, v, site,
+                                                block=CHUNK_BLOCK,
+                                                window=window,
+                                                onepass=site.onepass)
+            rate = aux.recompute_rate
+        else:
+            out = A.chunked_attention(q, k, v, block=CHUNK_BLOCK,
+                                      window=window)
+    else:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    out = out.transpose(1, 2).reshape(B, T, H * hd).to(x.dtype)
+    return out @ p["wo"], rate
 
 
 def paged_attention_decode_sublayer(cfg, p, x: torch.Tensor, *, arena_k,

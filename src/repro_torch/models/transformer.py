@@ -1,5 +1,6 @@
-"""Decoder-only transformer: the paged serving steps and the shadow audit's
-forward (port of ``repro/models/transformer.py:30-60,316-787``).
+"""Decoder-only transformer: the full-sequence forward of the paper's
+evaluation, the paged serving steps and the shadow audit's forward (port of
+``repro/models/transformer.py:30-153,316-787``).
 
 Parameters are a dictionary with the JAX package's layout: every block
 tensor is stacked with a leading (L,) axis, and the layer ``lax.scan``
@@ -22,11 +23,16 @@ attention path (the JAX package's `kernel` argument): "cuda" calls those
 wrappers, "gather" their plain versions by name, on any device.
 `paged_audit_window`, the shadow audit's forward, always runs the gather
 path (``core.attention``), as the JAX package's does.
+
+`forward` runs whole sequences through ``layers.attention_sublayer``
+(plain PyTorch over materialized or chunked logits, as the JAX package's
+full-sequence path is plain XLA): the paper's experiment, which compares
+its logits under a LAMP policy with the FP32 model's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -152,6 +158,75 @@ def _ffn(cfg, p_l, h, r_site: LampSite, *, dropless: bool = False):
                              dropless=dropless)
         return m
     return LY.mlp_apply(cfg, p_l["mlp"], h)
+
+
+class BlockCtx(NamedTuple):
+    positions: torch.Tensor
+    lamp_kq: LampSite
+    lamp_router: LampSite
+    attn_impl: str
+
+
+def block_apply(cfg, p, x, ctx: BlockCtx):
+    """One residual block over whole sequences: (x, aux) with aux the
+    layer's KQ recompute rate and, for the MoE family, its router metrics."""
+    h = LY.apply_norm(cfg, x, p, "ln1")
+    a, rate = LY.attention_sublayer(
+        cfg, p["attn"], h, positions=ctx.positions, lamp_site=ctx.lamp_kq,
+        attn_impl=ctx.attn_impl)
+    x = x + a
+    h = LY.apply_norm(cfg, x, p, "ln2")
+    if cfg.family == "moe":
+        m, metrics = MOE.moe_apply(cfg, p["moe"], h, lamp_site=ctx.lamp_router)
+        aux = {"attn_lamp_rate": rate, **metrics}
+    else:
+        m = LY.mlp_apply(cfg, p["mlp"], h)
+        aux = {"attn_lamp_rate": rate}
+    return x + m, aux
+
+
+def scan_blocks(cfg, blocks, x, ctx: BlockCtx):
+    """The layer stack: each aux metric averaged over the layers."""
+    auxes = []
+    for l in range(cfg.n_layers):
+        x, aux = block_apply(cfg, layer_params(blocks, l), x, ctx)
+        auxes.append(aux)
+    return x, {k: torch.mean(torch.stack([a[k] for a in auxes]))
+               for k in auxes[0]}
+
+
+def _ctx(cfg, positions, use_lamp: bool, attn_impl: str) -> BlockCtx:
+    pol = cfg.lamp
+    off = LampSite(enabled=False)
+    return BlockCtx(
+        positions=positions,
+        lamp_kq=pol.kq if use_lamp and pol.kq.enabled else off,
+        lamp_router=pol.router if use_lamp and pol.router.enabled else off,
+        attn_impl=attn_impl,
+    )
+
+
+def forward(cfg, params, tokens: torch.Tensor, *, use_lamp: bool = False,
+            attn_impl: str = "auto"):
+    """tokens: (B, S) -> (logits (B, S, vocab) float32, aux) on the tokens'
+    device. `use_lamp` applies `cfg.lamp`'s KQ site (and, for the MoE
+    family, its router site, dispatched in one group);
+    `attn_impl` is ``layers.attention_sublayer``'s. aux holds the
+    per-layer metrics averaged over the layers (`attn_lamp_rate`, and the
+    MoE's `router_lamp_rate`, `kept_frac`, `moe_aux_loss`)."""
+    if cfg.family == "llava":
+        raise ValueError("the llava family (its image frontend) is not "
+                         "ported yet: ROADMAP queue 1 item 5")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"the port runs the {FAMILIES} families, got "
+                         f"{cfg.family!r}")
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = LY.embed(cfg, params["embed"], tokens.long(), positions)
+    ctx = _ctx(cfg, positions, use_lamp, attn_impl)
+    x, aux = scan_blocks(cfg, params["blocks"], x, ctx)
+    x = LY.apply_norm(cfg, x, {"lnf_w": params["lnf_w"],
+                               "lnf_b": params.get("lnf_b")}, "lnf")
+    return LY.unembed(cfg, params["embed"], x), aux
 
 
 def _last_pad(valid_tok: torch.Tensor):

@@ -22,6 +22,9 @@ noise is the JAX engine's own:
     is ``-log(-log(u))`` with minval the smallest normal float32 (JAX's
     mode "low").
 
+The hash, the bits and the uniforms are ``core/prng.py``'s, shared with
+stochastic rounding and the random control arm.
+
 The uniforms are JAX's bit for bit; the Gumbel values are as close as
 torch's ``log`` is to XLA's (within 2 ulp). Keys are hashed on the host in
 numpy (a few words a row); the noise of all sampled rows is one batched
@@ -39,33 +42,15 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.prng import _M32, _bits, _uniform, threefry2x32
+
 # key salts (folded after the position counter; 0 = the plain sampler)
 SALT_SAMPLE = 0
 SALT_DRAFT = 1
 SALT_ACCEPT = 2
 SALT_RESIDUAL = 3
 
-_M32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _TINY = float(np.finfo(np.float32).tiny)
-
-
-def threefry2x32(k0, k1, x0, x1):
-    """The threefry2x32 hash of JAX (``jax._src.prng``, 20 rounds) of the
-    counter words (x0, x1) under the key (k0, k1). Works on numpy uint32
-    arrays and on torch int64 tensors holding 32-bit values (the operands
-    broadcast); returns (y0, y1) of the same kind."""
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = (x0 + ks[0]) & _M32
-    x1 = (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = ((x1 << r) & _M32) | (x1 >> (32 - r))
-            x1 = x0 ^ x1
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return x0, x1
 
 
 def _words(a) -> np.ndarray:
@@ -93,24 +78,6 @@ def row_key(seed, count, salt: int = SALT_SAMPLE):
     if salt != SALT_SAMPLE:
         key = fold_in(key, np.full(k1.shape, salt))
     return key[0].reshape(seed.shape), key[1].reshape(seed.shape)
-
-
-def _bits(key, n: int, device) -> torch.Tensor:
-    """JAX's partitionable 32-bit random bits for a flat shape of n under
-    each of R keys: (R, n) int64 on `device`."""
-    k0 = torch.from_numpy(key[0].astype(np.int64)).to(device)[:, None]
-    k1 = torch.from_numpy(key[1].astype(np.int64)).to(device)[:, None]
-    i = torch.arange(n, dtype=torch.int64, device=device)[None, :]
-    y0, y1 = threefry2x32(k0, k1, i >> 32, i & _M32)
-    return y0 ^ y1
-
-
-def _uniform(bits: torch.Tensor, minval: float) -> torch.Tensor:
-    """``jax.random.uniform`` in [minval, 1) from 32 random bits, float32:
-    mantissa bits under the exponent of 1.0, minus 1, scaled, shifted."""
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
-    return torch.maximum(lo, f * (1.0 - lo) + lo)
 
 
 def row_uniform(seeds, counts, salt: int, shape, device="cpu",

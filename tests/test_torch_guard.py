@@ -32,7 +32,9 @@ obs = {"repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.tracing",
        "repro_torch.obs.audit", "repro_torch.obs.error_model",
        "repro_torch.serving.faults",
        "repro_torch.serving.policy", "repro_torch.serving.sampling",
-       "repro_torch.models.moe"}
+       "repro_torch.models.moe", "repro_torch.core.prng",
+       "repro_torch.data.synthetic", "repro_torch.launch.paper_figs",
+       "repro_torch.launch.quickstart"}
 assert obs <= set(names), names
 for name in names:
     importlib.import_module(name)
