@@ -187,6 +187,32 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            outputs within PAPER_FP32_REL on rows whose counts agree,
            chunked_attention_lamp's two-pass count equal to
            attention_lamp's relaxed one and its one-pass count at least it
+  static   the static KV-cache serving loop (runtime.serve_loop.generate
+           -> models.api -> each family's prefill / decode_step; plain
+           PyTorch, no kernel) at published widths: gpt2-small (12
+           layers), llava-next-mistral-7b (2 of 32 layers, 576 image rows),
+           hymba-1.5b (2 of 32; window 1024, 128 meta tokens, SSM state
+           16), rwkv6-7b (2 of 32) and whisper-medium (2 + 2 of 24 + 24,
+           1500 frames), each in its config's dtype and policy, LAMP off
+           and on, 4 prompts of 32 tokens and 24 sampled tokens
+           (examples/serve_lamp.py's settings): prefill ms, decode tokens/s
+           and max_memory_allocated of a run that counts nothing, the
+           recompute rate of a second run (counts summed on the card, read
+           after it), and prefill + 3 decode steps under torch.profiler
+           (device busy, idle share, kernels) printed; gated on
+           the tokens' shape and range, finite logits, rates (0 with LAMP
+           off and for rwkv6, in (0, 1) for the attention families) and
+           the KL of LAMP against off below 0.5. Card against CPU in FP32
+           (LAMP off, the same seeded weights): prefill and 4 decode steps
+           within STATIC_FP32_REL of the largest logit, a control reading
+           above it (the config's bfloat16, or LAMP on for gpt2), the
+           card's greedy stream equal to the CPU's but at a near-tie, and
+           prefill(S - 1) + decode(1) equal to the forward; hymba once more
+           with a 1040-token prompt (the ring full, slot W - 1 written),
+           rwkv6 with a 100-token prompt (a padded 64-token chunk); and
+           lamp_logits_softmax's mask and rate on the card equal to the
+           CPU's and above 0, on that prompt's FP32 forward logits over
+           rwkv6's 65,536-word vocabulary, x 4
 
 The loud rule holds for every engine run of every phase but the ladder
 exhaustion run: no recovery through the gather or FP32 rung (they run the
@@ -200,6 +226,7 @@ random, drawn from a seed.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import os
 import statistics
@@ -874,20 +901,10 @@ def phase_spec(params, cfg, ref_tokens, rec):
     return launches, runs["fused"][2]
 
 
-def phase_profile(params, cfg, unprofiled_wall):
-    """The fused speculative run once more under torch.profiler: the
-    kernels' summed device time against the run's wall time (device busy
-    and idle share), and the kernels that take most of it. The profiler
-    slows the host, so the idle share is given against both the profiled
-    wall time and the unprofiled run's."""
+def device_rows(prof):
+    """(kernel name, device ms, calls) of a torch.profiler run, the
+    longest first."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import paged_attention as PA
-    saved = PA._wrapper.launches, PA._decode_wrapper.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng, _, wall = run_engine(params, cfg, speculative=True,
-                                  draft_len=SPEC_DRAFT_LEN)
-    PA._wrapper.launches, PA._decode_wrapper.launches = saved
     rows = []
     for e in prof.key_averages():
         # device events only: a host op (aten::mm) may also carry the time
@@ -900,6 +917,23 @@ def phase_profile(params, cfg, unprofiled_wall):
         if us > 0:
             rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+def phase_profile(params, cfg, unprofiled_wall):
+    """The fused speculative run once more under torch.profiler: the
+    kernels' summed device time against the run's wall time (device busy
+    and idle share), and the kernels that take most of it. The profiler
+    slows the host, so the idle share is given against both the profiled
+    wall time and the unprofiled run's."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import paged_attention as PA
+    saved = PA._wrapper.launches, PA._decode_wrapper.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng, _, wall = run_engine(params, cfg, speculative=True,
+                                  draft_len=SPEC_DRAFT_LEN)
+    PA._wrapper.launches, PA._decode_wrapper.launches = saved
+    rows = device_rows(prof)
     busy = sum(r[1] for r in rows)
     measured = busy > 0
     emit("profile", run="spec fused", steps=eng.mixed_steps,
@@ -2625,6 +2659,385 @@ def phase_paper():
     require(all(checks.values()), f"paper phase failed its checks: {checks}")
 
 
+# The static KV-cache serving loop (phase static): runtime.serve_loop ->
+# models.api -> each family's prefill / decode_step, plain PyTorch (the JAX
+# path reaches no Pallas kernel). Each family at its published widths, the
+# depth cut as printed; examples/serve_lamp.py's settings (4 prompts of 32
+# tokens, 24 new, temperature 0.7, seed 7), LAMP off and on.
+STATIC_MODELS = (
+    ("gpt2-small", {}, "all 12 layers"),
+    ("llava-next-mistral-7b", dict(n_layers=2), "2 of 32 layers"),
+    ("hymba-1.5b", dict(n_layers=2), "2 of 32 layers"),
+    ("rwkv6-7b", dict(n_layers=2), "2 of 32 layers"),
+    ("whisper-medium", dict(n_layers=2, n_enc_layers=2),
+     "2 of 24 encoder and 2 of 24 decoder layers"),
+)
+STATIC_BATCH, STATIC_PROMPT, STATIC_NEW, STATIC_SEED = 4, 32, 24, 7
+# card against CPU in FP32 (LAMP off): phase paper's FP32 arm tolerance,
+# of the largest logit (each device sums its FP32 products in its own order)
+STATIC_FP32_REL = PAPER_FP32_REL
+# the FP32 check: 2 prompts, prefill and 4 decode steps; rwkv6's prompt is
+# 100 tokens (its chunked prefill then pads its second 64-token chunk)
+STATIC_CHECK_BATCH, STATIC_CHECK_STEPS = 2, 4
+STATIC_RWKV_PROMPT = 100
+# hymba's full ring: one prompt of at least the window, so M + S > W and
+# every decode step writes slot W - 1 (the reference's shift-free ring)
+STATIC_RING_PROMPT, STATIC_RING_STEPS = 1040, 3
+STATIC_KL_MAX = 0.5                 # tests/test_models_smoke.py:106
+# the logits site's inputs are the FP32 forward's logits scaled as the JAX
+# benchmark's logits-site job scales its own (benchmarks/paper_figs.py:168):
+# a seeded model's logits spread ~1 wide, and unscaled no position's
+# softmax is peaked enough for the strict rule (8) to select a logit
+STATIC_SITE_SCALE = 4.0
+# the profiled run: prefill and 3 decode steps
+STATIC_PROFILE_NEW = 4
+
+
+class LampCounter:
+    """Wraps ``core.attention``'s three LAMP evaluators (the layers look
+    them up on the module when called) and sums their selected and valid
+    counts on the device: the recompute rate of whatever runs inside, read
+    once, after it (a read per call would wait on the card each time)."""
+
+    NAMES = ("attention_lamp", "chunked_attention_lamp",
+             "decode_attention_lamp")
+
+    def __enter__(self):
+        from repro_torch.core import attention as CA
+        self.CA, self.orig = CA, {n: getattr(CA, n) for n in self.NAMES}
+        self.selected = self.valid = 0.0
+
+        def counting(fn):
+            def wrapped(*a, **kw):
+                out, aux = fn(*a, **kw)
+                self.selected = self.selected + aux.n_selected.sum()
+                self.valid = self.valid + aux.n_valid.sum()
+                return out, aux
+            return wrapped
+        for n, fn in self.orig.items():
+            setattr(CA, n, counting(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.CA, n, fn)
+
+    @property
+    def rate(self) -> float:
+        return float(self.selected) / max(float(self.valid), 1.0)
+
+
+def static_greedy(cfg, params, batch, steps, tokens=None):
+    """prefill + `steps` decode steps, LAMP off, on the batch's device:
+    (logits of each call on the CPU (B, V), the tokens fed). Greedy on its
+    own logits, or teacher-forced with `tokens` (B, steps)."""
+    from repro_torch.models import api
+    B = batch["tokens"].shape[0]
+    dev = batch["tokens"].device
+    cache = api.init_cache(
+        cfg, B, batch["tokens"].shape[1] + steps + cfg.n_patches + 8,
+        torch.float32, device=dev)
+    with torch.no_grad():
+        logits, cache = api.prefill(cfg, params, batch, cache, use_lamp=False)
+        out, fed = [logits[:, -1].cpu()], []
+        for i in range(steps):
+            tok = (torch.argmax(out[-1], -1) if tokens is None
+                   else tokens[:, i]).to(dev)[:, None]
+            fed.append(tok.cpu())
+            logits, cache = api.decode_step(cfg, params, cache, tok,
+                                            use_lamp=False)
+            out.append(logits[:, -1].cpu())
+    return out, torch.cat(fed, dim=1)
+
+
+def static_rel(card, cpu):
+    return max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(card, cpu))
+
+
+def static_card_vs_cpu(cfg, seed, checks, tag):
+    """The family in FP32 on the card and on the CPU (the same seeded
+    weights), LAMP off: prefill and STATIC_CHECK_STEPS decode steps
+    teacher-forced with the CPU's greedy tokens, logits within
+    STATIC_FP32_REL of the largest; the card's own greedy stream through
+    ``generate`` against the CPU's, a difference allowed only at a step
+    whose CPU top-2 gap is below the gate; prefill(S - 1) + decode(1)
+    against the card's teacher-forced forward. Returns the readings, the
+    check batch and the CPU's prefill logits."""
+    from repro_torch.launch.serve_lamp import make_batch
+    from repro_torch.models import api
+    from repro_torch.models.transformer import map_params
+    from repro_torch.runtime.serve_loop import ServeConfig, generate
+    cfg32 = cfg.replace(dtype="float32")
+    cpu_params = api.init_params(cfg32, seed, "cpu")
+    params = map_params(cpu_params, lambda t: t.to(DEVICE))
+    S = STATIC_RWKV_PROMPT if cfg.family == "rwkv6" else STATIC_PROMPT
+    cpu_batch = make_batch(cfg, STATIC_CHECK_BATCH, S, "cpu", seed=seed + 1)
+    batch = {k: v.to(DEVICE) for k, v in cpu_batch.items()}
+    steps = STATIC_CHECK_STEPS
+    want, fed = static_greedy(cfg32, cpu_params, cpu_batch, steps)
+    got, _ = static_greedy(cfg32, params, batch, steps, tokens=fed)
+    rel = static_rel(got, want)
+    cpu_tokens = torch.cat([fed, torch.argmax(want[-1], -1)[:, None]], dim=1)
+    with torch.no_grad():
+        card_tokens = generate(cfg32, params, batch, ServeConfig(
+            max_new_tokens=steps + 1, temperature=0.0, use_lamp=False,
+            cache_len=S + steps + cfg.n_patches + cfg.n_meta_tokens + 8,
+            seed=seed))["tokens"].cpu()
+    greedy = {"equal": bool(torch.equal(card_tokens, cpu_tokens))}
+    if not greedy["equal"]:
+        apart = (card_tokens != cpu_tokens).any(dim=0).nonzero()
+        step = int(apart[0])
+        top = torch.topk(want[step], 2, dim=-1).values
+        gap = float((top[:, 0] - top[:, 1]).min())
+        greedy.update(first_step_apart=step, top2_gap=gap,
+                      gate=STATIC_FP32_REL * float(want[step].abs().max()))
+    checks[f"{tag}_fp32_logits_within_tol"] = rel <= STATIC_FP32_REL
+    checks[f"{tag}_greedy_equal_or_near_tie"] = greedy["equal"] or \
+        greedy["top2_gap"] < greedy["gate"]
+    # prefill(S - 1) + decode(1) against the forward, on the card
+    with torch.no_grad():
+        full = api.forward_logits(cfg32, params, batch)
+        pos = S - 1 + cfg.n_patches
+        cache = api.init_cache(cfg32, STATIC_CHECK_BATCH,
+                               S + cfg.n_patches + 8, torch.float32,
+                               device=DEVICE)
+        _, cache = api.prefill(cfg32, params,
+                               dict(batch, tokens=batch["tokens"][:, :S - 1]),
+                               cache, use_lamp=False)
+        ld, _ = api.decode_step(cfg32, params, cache,
+                                batch["tokens"][:, S - 1:], use_lamp=False)
+    consistent = bool(torch.allclose(ld[:, 0], full[:, pos], rtol=2e-3,
+                                     atol=2e-4))
+    checks[f"{tag}_prefill_decode_equals_forward"] = consistent
+    readings = {"prompt": S, "steps": steps, "logit_max_abs_over_max": rel,
+                "greedy": greedy, "prefill_decode_vs_forward_max_abs": float(
+                    (ld[:, 0] - full[:, pos]).abs().max())}
+    if cfg.family == "rwkv6":
+        readings["logits_site"] = static_logits_site(full, checks, tag)
+    del full
+    if cfg.family == "hymba":
+        readings["full_ring"] = static_hymba_ring(cfg32, params, cpu_params,
+                                                  seed, checks, tag)
+    del params
+    return readings, cpu_batch, want[0], cpu_params
+
+
+def static_hymba_ring(cfg, params, cpu_params, seed, checks, tag):
+    """One hymba prompt of STATIC_RING_PROMPT tokens (at least the window):
+    the ring of W = window + M slots holds the last W of M + S positions,
+    and every decode step writes slot W - 1; card against CPU, FP32."""
+    from repro_torch.launch.serve_lamp import make_batch
+    cpu_batch = make_batch(cfg, 1, STATIC_RING_PROMPT, "cpu", seed=seed + 2)
+    batch = {k: v.to(DEVICE) for k, v in cpu_batch.items()}
+    W = cfg.window + cfg.n_meta_tokens
+    T = cfg.n_meta_tokens + STATIC_RING_PROMPT
+    want, fed = static_greedy(cfg, cpu_params, cpu_batch, STATIC_RING_STEPS)
+    got, _ = static_greedy(cfg, params, batch, STATIC_RING_STEPS, tokens=fed)
+    rel = static_rel(got, want)
+    checks[f"{tag}_full_ring_within_tol"] = T > W and rel <= STATIC_FP32_REL
+    return {"prompt": STATIC_RING_PROMPT, "ring_slots": W, "positions": T,
+            "logit_max_abs_over_max": rel}
+
+
+def static_logits_site(logits, checks, tag):
+    """``lamp_logits_softmax`` on the card and on the CPU on the same
+    logits: the card's FP32 teacher-forced forward of the published-width
+    model (2 x STATIC_RWKV_PROMPT positions over the 65,536-word
+    vocabulary) times STATIC_SITE_SCALE, for mu 4 and 6 at tau 0.05 (the
+    JAX benchmark's logits-site job): the strict rule's masks equal and
+    the rates equal and above 0."""
+    from repro_torch.core import lamp as LC
+    from repro_torch.core.numerics import round_to_mantissa
+    from repro_torch.runtime.serve_loop import lamp_logits_softmax
+    logits = logits * STATIC_SITE_SCALE
+    host = logits.cpu()
+    site = {"positions": int(host.numel() // host.shape[-1]),
+            "vocab": int(host.shape[-1]), "scale": STATIC_SITE_SCALE,
+            "logit_max_abs": float(host.abs().max())}
+    for mu in (4, 6):
+        masks, rates = [], []
+        for lg in (logits, host):
+            masks.append(LC.select_softmax_strict(
+                round_to_mantissa(lg, mu), 0.05).cpu())
+            rates.append(float(lamp_logits_softmax(lg, mu, 0.05)[1]))
+        site[f"mu{mu}"] = {"rate": rates[0], "rate_cpu": rates[1],
+                           "selected": int(masks[0].sum()),
+                           "mask_apart": int((masks[0] != masks[1]).sum())}
+    checks[f"{tag}_logits_site_equal"] = all(
+        site[m]["mask_apart"] == 0 and site[m]["rate"] == site[m]["rate_cpu"] > 0
+        for m in ("mu4", "mu6"))
+    return site
+
+
+def static_profile(cfg, params, batch, serve, timed):
+    """``generate`` once more for STATIC_PROFILE_NEW tokens (prefill and
+    STATIC_PROFILE_NEW - 1 decode steps) under torch.profiler (device
+    activity only: its cost grows with the events, and gpt2's LAMP arm
+    launches about 17k kernels a step): the kernels' summed device time
+    against the timed run's wall time for the same work (its prefill_s
+    and as many decode steps at its rate; device idle share), the
+    kernels launched, and the three that take the most device time.
+    Printed, not gated."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.serve_loop import generate
+    short = dataclasses.replace(serve, max_new_tokens=STATIC_PROFILE_NEW)
+    unprofiled = 1e3 * (timed["prefill_s"] + STATIC_BATCH *
+                        (STATIC_PROFILE_NEW - 1) / timed["decode_tok_per_s"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        generate(cfg, params, batch, short)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    if busy <= 0:
+        return {"device_busy_ms": "not measured"}
+    return {"new_tokens": STATIC_PROFILE_NEW, "unprofiled_wall_ms": unprofiled,
+            "device_busy_ms": busy, "idle_share": 1 - busy / unprofiled,
+            "kernels": sum(r[2] for r in rows),
+            "top": [{"name": k[:80], "device_ms": t, "calls": c}
+                    for k, t, c in rows[:3]]}
+
+
+def static_family(arch, overrides, cut, seed=0):
+    """One family through ``serve_loop.generate`` on the card (the phase's
+    comment above STATIC_MODELS), and its checks."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_lamp import make_batch
+    from repro_torch.models import api
+    from repro_torch.runtime.serve_loop import ServeConfig, generate
+    t0 = time.perf_counter()
+    cfg = get_config(arch).replace(**overrides)
+    tag = cfg.family
+    print(f"static: {arch} at its published widths (d {cfg.d_model}, "
+          f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
+          f"{cut}, {cfg.dtype}", flush=True)
+    checks = {}
+    # card against CPU in FP32 first, while the card is empty
+    fp32, check_batch, cpu_prefill, cpu_params = static_card_vs_cpu(
+        cfg, seed, checks, tag)
+    # the control reading: what a wrong path scores against the CPU's FP32
+    # logits -- the config's own dtype, or LAMP on for an FP32 config
+    params = api.init_params(cfg, seed, DEVICE)
+    lamp_arm = cfg.dtype == "float32"
+    ctl_batch = {k: v.to(DEVICE) for k, v in check_batch.items()}
+    with torch.no_grad():
+        cache = api.init_cache(
+            cfg, STATIC_CHECK_BATCH,
+            ctl_batch["tokens"].shape[1] + cfg.n_patches + 8, torch.float32,
+            device=DEVICE)
+        ctl, _ = api.prefill(cfg, params, ctl_batch, cache, use_lamp=lamp_arm)
+    control = float((ctl[:, -1].float().cpu() - cpu_prefill).abs().max()
+                    / cpu_prefill.abs().max())
+    fp32["control"] = {"arm": "lamp_on" if lamp_arm else cfg.dtype,
+                       "logit_max_abs_over_max": control}
+    checks[f"{tag}_control_above_gate"] = control > STATIC_FP32_REL
+    del cpu_params
+    gc.collect()
+    # the serve loop in the config's dtype, LAMP off and on
+    batch = make_batch(cfg, STATIC_BATCH, STATIC_PROMPT, DEVICE, seed=seed)
+    cache_len = STATIC_PROMPT + STATIC_NEW + cfg.n_patches + \
+        cfg.n_meta_tokens + 8
+    with torch.no_grad():
+        generate(cfg, params, batch, ServeConfig(max_new_tokens=2,
+                                                 cache_len=cache_len))  # warm-up
+        arms, last = {}, {}
+        for use_lamp in (False, True):
+            serve = ServeConfig(max_new_tokens=STATIC_NEW, temperature=0.7,
+                                seed=STATIC_SEED, use_lamp=use_lamp,
+                                cache_len=cache_len)
+            # the timed run counts nothing; a second run counts the rate
+            torch.cuda.reset_peak_memory_stats()
+            out = generate(cfg, params, batch, serve)
+            mem = torch.cuda.max_memory_allocated()
+            with LampCounter() as count:
+                counted = generate(cfg, params, batch, serve)["tokens"]
+            toks = out["tokens"]
+            arm = "lamp" if use_lamp else "fp32"
+            arms[arm] = {
+                "prefill_s": out["prefill_s"],
+                "decode_tok_per_s": out["decode_tok_per_s"],
+                "profile": static_profile(cfg, params, batch, serve, out),
+                "max_memory_allocated": mem,
+                "recompute_rate": count.rate,
+                "counted_run_tokens_equal": bool(torch.equal(counted, toks)),
+                "tokens_ok": toks.shape == (STATIC_BATCH, STATIC_NEW)
+                and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+                "first_tokens": toks[0, :8].tolist()}
+            cache = api.init_cache(cfg, STATIC_BATCH, cache_len,
+                                   torch.float32, device=DEVICE)
+            last[arm] = api.prefill(cfg, params, batch, cache,
+                                    use_lamp=use_lamp)[0][:, -1].float()
+    p, q = (torch.softmax(last[a], -1) for a in ("fp32", "lamp"))
+    kl = float(torch.mean(torch.sum(
+        p * (torch.log(p + 1e-20) - torch.log(q + 1e-20)), -1)))
+    checks[f"{tag}_tokens_ok"] = all(a["tokens_ok"] for a in arms.values())
+    checks[f"{tag}_logits_finite"] = all(
+        bool(torch.isfinite(v).all()) for v in last.values())
+    checks[f"{tag}_kl_below_{STATIC_KL_MAX}"] = bool(np.isfinite(kl)) and \
+        kl < STATIC_KL_MAX
+    checks[f"{tag}_lamp_off_rate_0"] = arms["fp32"]["recompute_rate"] == 0
+    if cfg.family == "rwkv6":
+        checks[f"{tag}_lamp_rate_0"] = arms["lamp"]["recompute_rate"] == 0
+    else:
+        checks[f"{tag}_lamp_rate_in_0_1"] = \
+            0 < arms["lamp"]["recompute_rate"] < 1
+    print(f"static: {arch}: prefill {arms['fp32']['prefill_s']*1e3:.1f} / "
+          f"{arms['lamp']['prefill_s']*1e3:.1f} ms, decode "
+          f"{arms['fp32']['decode_tok_per_s']:.1f} / "
+          f"{arms['lamp']['decode_tok_per_s']:.1f} tok/s (FP32 / LAMP), "
+          f"rate {arms['lamp']['recompute_rate']:.4f}, KL {kl:.3e}; FP32 "
+          f"card vs CPU {fp32['logit_max_abs_over_max']:.3g} (gate "
+          f"{STATIC_FP32_REL:g}, control {control:.3g})", flush=True)
+    for a in ("fp32", "lamp"):
+        pr = arms[a]["profile"]
+        if isinstance(pr["device_busy_ms"], float):
+            print(f"static: {arch}: {a} arm, prefill + "
+                  f"{STATIC_PROFILE_NEW - 1} decode steps profiled: device "
+                  f"busy {pr['device_busy_ms']:.1f} of "
+                  f"{pr['unprofiled_wall_ms']:.1f} ms unprofiled (idle "
+                  f"{pr['idle_share']:.3f}), {pr['kernels']} kernels",
+                  flush=True)
+    if "logits_site" in fp32:
+        site = fp32["logits_site"]
+        print(f"static: {arch}: logits site on {site['positions']} x "
+              f"{site['vocab']} logits x {site['scale']:g}: rate mu 4 "
+              f"{site['mu4']['rate']:.4g} (CPU {site['mu4']['rate_cpu']:.4g}), "
+              f"mu 6 {site['mu6']['rate']:.4g} (CPU "
+              f"{site['mu6']['rate_cpu']:.4g}), masks apart "
+              f"{site['mu4']['mask_apart']} / {site['mu6']['mask_apart']}",
+              flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "cut": cut, "n_layers": cfg.n_layers,
+            "n_enc_layers": cfg.n_enc_layers, "dtype": cfg.dtype,
+            "arms": arms, "kl_lamp_vs_fp32": kl, "fp32_card_vs_cpu": fp32,
+            "seconds": time.perf_counter() - t0}, checks
+
+
+def phase_static():
+    """The static KV-cache serving loop on every family (the comment
+    above STATIC_MODELS; module docstring)."""
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"static: on {smi}", flush=True)
+    families, checks = [], {}
+    for arch, overrides, cut in STATIC_MODELS:
+        row, c = static_family(arch, overrides, cut)
+        families.append(row)
+        checks.update(c)
+    emit("static", card=smi, settings=dict(
+        batch=STATIC_BATCH, prompt=STATIC_PROMPT, new_tokens=STATIC_NEW,
+        temperature=0.7, seed=STATIC_SEED), fp32_gate=STATIC_FP32_REL,
+        families=families, seconds=time.perf_counter() - t0, checks=checks,
+        ok=all(checks.values()))
+    require(all(checks.values()), f"static phase failed its checks: "
+            f"{ {k: v for k, v in checks.items() if not v} }")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_device()
@@ -2654,6 +3067,7 @@ def main() -> int:
     phase_phased(params, cfg, ref_tokens)
     phase_moe()
     phase_paper()
+    phase_static()
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows + micro_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,12 +36,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, reduced
 from repro_torch.core.lamp import select_rmsnorm
 from repro_torch.core.mixed_matmul import dot_ps
+from repro_torch.core.numerics import round_to_mantissa
 from repro_torch.core.policy import LampPolicy
 from repro_torch.data.synthetic import DataConfig, SyntheticDataset
+from repro_torch.models import api
 from repro_torch.models import transformer as TT
+from repro_torch.runtime.serve_loop import lamp_logits_softmax
 
 QK_GAIN = 2.0   # calibrates the attention-logit spread toward a trained model's
 
@@ -294,6 +297,33 @@ def table1_perplexity(sc: Scale, device):
                  f"ppl={r['perplexity']:.4f};rate={r['recompute_rate']:.4f}")
 
 
+def rwkv_logits_site(sc: Scale, device):
+    """Beyond the paper: LAMP at the LM-head -> sampling-softmax site of the
+    attention-free rwkv6 (it has no KQ softmax). The strict rule (8) on the
+    final logits against uniform PS(mu) logits, by KL from the FP32
+    softmax. rwkv6-7b reduced to d 128 and vocabulary 2048 at every scale,
+    as the JAX benchmark runs it; seeded weights and tokens (not the JAX
+    benchmark's draws)."""
+    cfg = reduced(get_config("rwkv6-7b"), d_model=128, vocab=2048)
+    params = api.init_params(cfg, 0, device)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 64))).to(device)
+    logits = api.forward_logits(cfg, params, {"tokens": toks}) * 4.0
+    p_ref = torch.softmax(logits, -1)
+
+    def kl(p):
+        return float(torch.mean(torch.sum(
+            p_ref * (torch.log(p_ref + 1e-20) - torch.log(p + 1e-20)), -1)))
+
+    for mu in (4, 6):
+        p_low = torch.softmax(round_to_mantissa(logits, mu), -1)
+        us, (p_lamp, rate) = timed(
+            lambda: lamp_logits_softmax(logits, mu, 0.05), device)
+        emit(f"rwkv_logits_site_mu{mu}", us,
+             f"kl_low={kl(p_low):.3e};kl_lamp={kl(p_lamp):.3e};"
+             f"rate={float(rate):.4f}")
+
+
 def rmsnorm_site(sc: Scale, device):
     """The paper's Sec 3.2 (Props 3.1 / 3.2): LAMP for matmul -> RMSNorm.
     The greedy prefix of the largest y_i^2 against uniform PS(4) and a
@@ -336,6 +366,7 @@ JOBS = {
     "fig6": fig6_permuted,
     "fig7": fig7_random_control,
     "table1": table1_perplexity,
+    "rwkv_logits_site": rwkv_logits_site,
     "rmsnorm_site": rmsnorm_site,
 }
 

@@ -1,8 +1,10 @@
-"""Shared model layers (port of ``repro/models/layers.py:27-184,245-306,
-326-375``).
+"""Shared model layers (port of ``repro/models/layers.py:27-375``).
 
 Plain functions over parameter dictionaries, in the config dtype with FP32
 islands where the JAX package has them (norm statistics, final logits).
+The parameter makers draw FP32 values from a seeded torch generator with
+the JAX package's shapes and scales (not its random bits); the caller
+casts them to the model's dtype.
 """
 
 from __future__ import annotations
@@ -44,6 +46,47 @@ def paged_attention_fns(kernel: str):
 
 def dtype_of(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
+
+
+def kq_site(cfg, use_lamp: bool) -> LampSite:
+    """The config's KQ site with LAMP on, a disabled site without it."""
+    kq = cfg.lamp.kq
+    return kq if use_lamp and kq.enabled else LampSite(enabled=False)
+
+
+def normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
+    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32) * scale
+
+
+def attn_params(cfg, gen: torch.Generator, lead=()) -> Dict[str, torch.Tensor]:
+    """One attention sublayer's projections (of `lead` layers stacked)."""
+    lead = tuple(lead)
+    d, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    p = {"wq": normal(gen, lead + (d, H * hd), d ** -0.5),
+         "wk": normal(gen, lead + (d, Hkv * hd), d ** -0.5),
+         "wv": normal(gen, lead + (d, Hkv * hd), d ** -0.5),
+         "wo": normal(gen, lead + (H * hd, d), (H * hd) ** -0.5)}
+    if cfg.qk_norm:
+        p["qn_w"] = torch.zeros(lead + (hd,))
+        p["kn_w"] = torch.zeros(lead + (hd,))
+    return p
+
+
+def mlp_params(cfg, gen: torch.Generator, lead=()) -> Dict[str, torch.Tensor]:
+    lead = tuple(lead)
+    d, ff = cfg.d_model, cfg.d_ff
+    gated = cfg.act in ("swiglu", "geglu")
+    return {"wi": normal(gen, lead + (d, 2 * ff if gated else ff), d ** -0.5),
+            "wo": normal(gen, lead + (ff, d), ff ** -0.5)}
+
+
+def embed_params(cfg, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    p = {"tok": normal(gen, (cfg.vocab, cfg.d_model), 0.02)}
+    if cfg.pos == "learned":
+        p["pos"] = normal(gen, (cfg.max_seq, cfg.d_model), 0.01)
+    if not cfg.tie_embeddings:
+        p["unembed"] = normal(gen, (cfg.d_model, cfg.vocab), cfg.d_model ** -0.5)
+    return p
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -114,56 +157,115 @@ def _repeat_kv(t: torch.Tensor, n_rep: int) -> torch.Tensor:
 CHUNK_BLOCK = 512
 
 
-def attention_sublayer(cfg, p, x: torch.Tensor, *, positions: torch.Tensor,
-                       lamp_site: LampSite, attn_impl: str = "auto"):
-    """Full-sequence causal attention (the paper's evaluation, prefill),
-    over `cfg.window` keys where the config has one. Returns (out,
-    recompute rate as a 0-d tensor).
+def attention_out(cfg, p, q, k, v, lamp_site: LampSite, *,
+                  causal: bool = True, attn_impl: str = "auto",
+                  random_control: bool = False):
+    """The attention sublayer after its projections: q (B, T, H, hd)
+    against k, v (B, Tk, Hkv, hd) over `cfg.window` keys, then `wo`.
+    Returns (out (B, T, d), recompute rate as a 0-d tensor). A caller that
+    also caches k and v projects them once.
 
     `attn_impl` "full" materializes the logits (``attention_lamp``, or
     ``attention_reference`` with LAMP off); "chunked" runs the online
     softmax over KV blocks of ``CHUNK_BLOCK`` keys, where LAMP takes the
     relaxed rule whatever the site names and the site's `onepass` picks the
-    threshold; "auto" is "full" up to 2048 positions. The rule "random" is
-    the App C.4 control arm: the strict rule's counts at random positions,
-    under ``PRNGKey(0)`` in every layer."""
-    B, T, _ = x.shape
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = _project_qkv(cfg, p, x, positions)
+    threshold; "auto" is "full" up to 2048 positions. With
+    `random_control` the rule "random" is the App C.4 control arm: the
+    strict rule's counts at random positions, under ``PRNGKey(0)`` (the
+    sublayer's use); without it that rule raises, as the JAX package's
+    prefill does."""
+    B, T = q.shape[:2]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    dtype, window = q.dtype, cfg.window
     q = q.transpose(1, 2)
-    k = _repeat_kv(k.transpose(1, 2), H // Hkv)
-    v = _repeat_kv(v.transpose(1, 2), H // Hkv)
-    window = cfg.window
+    k = _repeat_kv(k.transpose(1, 2), n_rep)
+    v = _repeat_kv(v.transpose(1, 2), n_rep)
     if attn_impl == "auto":
         attn_impl = "full" if max(T, k.shape[2]) <= 2048 else "chunked"
-    rate = torch.zeros((), dtype=torch.float32, device=x.device)
+    rate = torch.zeros((), dtype=torch.float32, device=q.device)
     if attn_impl == "full":
         if lamp_site.enabled:
-            if lamp_site.rule == "random":
+            if random_control and lamp_site.rule == "random":
                 out, aux = A.attention_lamp(
-                    q, k, v, lamp_site.replace(rule="strict"), window=window,
-                    random_key=prng.PRNGKey(0, x.device))
+                    q, k, v, lamp_site.replace(rule="strict"), causal=causal,
+                    window=window, random_key=prng.PRNGKey(0, q.device))
             else:
-                out, aux = A.attention_lamp(q, k, v, lamp_site, window=window)
+                out, aux = A.attention_lamp(q, k, v, lamp_site, causal=causal,
+                                            window=window)
             rate = aux.recompute_rate
         else:
-            out = A.attention_reference(q, k, v, window=window)
+            out = A.attention_reference(q, k, v, causal=causal, window=window)
     elif attn_impl == "chunked":
         if lamp_site.enabled:
             site = lamp_site if lamp_site.rule == "relaxed" \
                 else lamp_site.replace(rule="relaxed")
-            out, aux = A.chunked_attention_lamp(q, k, v, site,
+            out, aux = A.chunked_attention_lamp(q, k, v, site, causal=causal,
                                                 block=CHUNK_BLOCK,
                                                 window=window,
                                                 onepass=site.onepass)
             rate = aux.recompute_rate
         else:
-            out = A.chunked_attention(q, k, v, block=CHUNK_BLOCK,
-                                      window=window)
+            out = A.chunked_attention(q, k, v, causal=causal,
+                                      block=CHUNK_BLOCK, window=window)
     else:
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
-    out = out.transpose(1, 2).reshape(B, T, H * hd).to(x.dtype)
+    out = out.transpose(1, 2).reshape(B, T, -1).to(dtype)
     return out @ p["wo"], rate
+
+
+def attention_sublayer(cfg, p, x: torch.Tensor, *, positions: torch.Tensor,
+                       lamp_site: LampSite, causal: bool = True,
+                       attn_impl: str = "auto", kv=None):
+    """Full-sequence attention (the paper's evaluation, the encoder) over
+    `cfg.window` keys. Returns (out, recompute rate as a 0-d tensor); see
+    `attention_out`, which runs the rule "random" as the control arm here.
+    `kv`:
+    (k, v) in (B, Tk, Hkv, hd) supplied from outside (the whisper
+    decoder's cross-attention): q comes from x, k and v from the
+    encoder."""
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    if kv is not None:
+        k, v = kv
+    return attention_out(cfg, p, q, k, v, lamp_site, causal=causal,
+                         attn_impl=attn_impl, random_control=True)
+
+
+def attention_decode_sublayer(cfg, p, x: torch.Tensor, *, cache_k, cache_v,
+                              length, lamp_site: LampSite, kv_cross=None):
+    """Single-token decode against a dense cache (one layer; the
+    single-device branch of the JAX sublayer).
+
+    x: (B, 1, d); cache_k / cache_v: (B, S, Hkv, hd), written in place (the
+    JAX package returns updated copies): the new token's K/V land at
+    position length[b], and a write past S is dropped, as JAX's scatter
+    drops it. Attention runs through ``decode_attention_lamp`` (the "dot_ps"
+    order) at the effective length length + 1, over `cfg.window` keys.
+    `kv_cross`: (k, v) (B, Te, Hkv, hd) of the encoder; then nothing is
+    written and all Te keys are read. Returns (out (B, 1, d), cache_k,
+    cache_v, recompute rate)."""
+    B = x.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = _project_qkv(cfg, p, x, length[:, None])
+    if kv_cross is None:
+        S = cache_k.shape[1]
+        rows = torch.arange(B, device=x.device)
+        slot = torch.clamp(length.long(), max=S - 1)
+        keep = (length < S)[:, None, None]
+        for cache, new in ((cache_k, k), (cache_v, v)):
+            cache[rows, slot] = torch.where(keep, new[:, 0].to(cache.dtype),
+                                            cache[rows, slot])
+        use_k, use_v = cache_k, cache_v
+        eff = length + 1
+    else:
+        use_k, use_v = kv_cross
+        eff = torch.full((B,), use_k.shape[1], dtype=torch.int32,
+                         device=x.device)
+    kh = _repeat_kv(use_k.movedim(2, 1), H // Hkv)
+    vh = _repeat_kv(use_v.movedim(2, 1), H // Hkv)
+    out, aux = A.decode_attention_lamp(q.transpose(1, 2), kh, vh, eff,
+                                       lamp_site, window=cfg.window)
+    out = out.transpose(1, 2).reshape(B, 1, H * hd).to(x.dtype)
+    return out @ p["wo"], cache_k, cache_v, aux.recompute_rate
 
 
 def paged_attention_decode_sublayer(cfg, p, x: torch.Tensor, *, arena_k,

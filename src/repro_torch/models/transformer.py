@@ -1,6 +1,7 @@
-"""Decoder-only transformer: the full-sequence forward of the paper's
-evaluation, the paged serving steps and the shadow audit's forward (port of
-``repro/models/transformer.py:30-153,316-787``).
+"""Decoder-only transformer (dense / MoE / GPT-2 / LLaVA backbone): the
+full-sequence forward of the paper's evaluation, the static KV-cache stack,
+the paged serving steps and the shadow audit's forward (port of
+``repro/models/transformer.py``).
 
 Parameters are a dictionary with the JAX package's layout: every block
 tensor is stacked with a leading (L,) axis, and the layer ``lax.scan``
@@ -27,7 +28,15 @@ path (``core.attention``), as the JAX package's does.
 `forward` runs whole sequences through ``layers.attention_sublayer``
 (plain PyTorch over materialized or chunked logits, as the JAX package's
 full-sequence path is plain XLA): the paper's experiment, which compares
-its logits under a LAMP policy with the FP32 model's.
+its logits under a LAMP policy with the FP32 model's, and `loss_fn`.
+
+The static KV-cache stack (`init_cache`, `prefill`, `decode_step`; port of
+``repro/models/transformer.py:156-305``) serves ``runtime.serve_loop``: a
+dense (L, B, max_len, Hkv, hd) cache written in place, prefill through the
+same full-sequence attention, decode through ``decode_attention_lamp``,
+plain PyTorch as the JAX path is plain XLA. It also runs llava, whose stub
+frontend's image embeddings are projected by `mm_proj` and prepended; the
+paged engine serves `FAMILIES` only, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -42,7 +51,12 @@ from . import layers as LY
 from . import moe as MOE
 from .layers import KERNELS, check_kernel  # noqa: F401 (the engine's, the CLI's)
 
+# the families the paged engine serves (the JAX engine's,
+# ``repro/serving/engine.py:79``); the whole-sequence forward and the static
+# KV-cache stack also run llava, the dense backbone behind a stub image
+# frontend
 FAMILIES = ("dense", "moe", "gpt2")
+DENSE_FAMILIES = FAMILIES + ("llava",)
 
 
 def resolve_device(device) -> torch.device:
@@ -56,45 +70,23 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=torch.float32) * scale
-
-
 def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random weights drawn from a seeded CPU generator (so every device
     gets the same values), with the JAX package's shapes and scales, then
     moved to `device`. Not the JAX package's random bits: tests that need
-    both packages on one set of weights use ``convert.params_from_jax``."""
-    if cfg.family not in FAMILIES:
-        raise ValueError(f"the port serves the {FAMILIES} families, got "
-                         f"{cfg.family!r}")
+    both packages on one set of weights use ``convert.params_from_jax``.
+    The llava family adds the stub frontend's projector `mm_proj`."""
+    check_family(cfg)
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
-    L, d, hd, ff = cfg.n_layers, cfg.d_model, cfg.hd, cfg.d_ff
-    H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    attn = {
-        "wq": _normal(gen, (L, d, H * hd), d ** -0.5),
-        "wk": _normal(gen, (L, d, Hkv * hd), d ** -0.5),
-        "wv": _normal(gen, (L, d, Hkv * hd), d ** -0.5),
-        "wo": _normal(gen, (L, H * hd, d), (H * hd) ** -0.5),
-    }
-    if cfg.qk_norm:
-        attn["qn_w"] = torch.zeros((L, hd))
-        attn["kn_w"] = torch.zeros((L, hd))
-    gated = cfg.act in ("swiglu", "geglu")
-    blocks: Dict[str, Any] = {"attn": attn}
+    L, d = cfg.n_layers, cfg.d_model
+    blocks: Dict[str, Any] = {"attn": LY.attn_params(cfg, gen, lead=(L,))}
     if cfg.family == "moe":
         blocks["moe"] = MOE.moe_params(cfg, gen, lead=(L,))
     else:
-        blocks["mlp"] = {
-            "wi": _normal(gen, (L, d, 2 * ff if gated else ff), d ** -0.5),
-            "wo": _normal(gen, (L, ff, d), ff ** -0.5)}
-    params: Dict[str, Any] = {"embed": {"tok": _normal(gen, (cfg.vocab, d), 0.02)},
+        blocks["mlp"] = LY.mlp_params(cfg, gen, lead=(L,))
+    params: Dict[str, Any] = {"embed": LY.embed_params(cfg, gen),
                               "blocks": blocks}
-    if cfg.pos == "learned":
-        params["embed"]["pos"] = _normal(gen, (cfg.max_seq, d), 0.01)
-    if not cfg.tie_embeddings:
-        params["embed"]["unembed"] = _normal(gen, (d, cfg.vocab), d ** -0.5)
     if cfg.norm == "layernorm":
         for n in ("ln1", "ln2"):
             blocks[f"{n}_w"], blocks[f"{n}_b"] = torch.ones((L, d)), torch.zeros((L, d))
@@ -102,6 +94,8 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
     else:
         blocks["ln1_w"], blocks["ln2_w"] = torch.zeros((L, d)), torch.zeros((L, d))
         params["lnf_w"] = torch.zeros((d,))
+    if cfg.family == "llava":
+        params["mm_proj"] = LY.normal(gen, (d, d), d ** -0.5)
     dt = LY.dtype_of(cfg)
     params = map_params(params, lambda t: t.to(device=device, dtype=dt))
     if cfg.family == "moe":
@@ -139,8 +133,7 @@ def _serving_site(site: LampSite) -> LampSite:
 
 
 def _kq_site(cfg, use_lamp: bool) -> LampSite:
-    kq = cfg.lamp.kq
-    return _serving_site(kq if use_lamp and kq.enabled else LampSite(enabled=False))
+    return _serving_site(LY.kq_site(cfg, use_lamp))
 
 
 def _router_site(cfg, use_lamp: bool) -> LampSite:
@@ -196,37 +189,148 @@ def scan_blocks(cfg, blocks, x, ctx: BlockCtx):
 
 
 def _ctx(cfg, positions, use_lamp: bool, attn_impl: str) -> BlockCtx:
-    pol = cfg.lamp
-    off = LampSite(enabled=False)
-    return BlockCtx(
-        positions=positions,
-        lamp_kq=pol.kq if use_lamp and pol.kq.enabled else off,
-        lamp_router=pol.router if use_lamp and pol.router.enabled else off,
-        attn_impl=attn_impl,
-    )
+    return BlockCtx(positions=positions, lamp_kq=LY.kq_site(cfg, use_lamp),
+                     lamp_router=_router_site(cfg, use_lamp),
+                     attn_impl=attn_impl)
 
 
-def forward(cfg, params, tokens: torch.Tensor, *, use_lamp: bool = False,
-            attn_impl: str = "auto"):
-    """tokens: (B, S) -> (logits (B, S, vocab) float32, aux) on the tokens'
-    device. `use_lamp` applies `cfg.lamp`'s KQ site (and, for the MoE
-    family, its router site, dispatched in one group);
-    `attn_impl` is ``layers.attention_sublayer``'s. aux holds the
-    per-layer metrics averaged over the layers (`attn_lamp_rate`, and the
-    MoE's `router_lamp_rate`, `kept_frac`, `moe_aux_loss`)."""
-    if cfg.family == "llava":
-        raise ValueError("the llava family (its image frontend) is not "
-                         "ported yet: ROADMAP queue 1 item 5")
-    if cfg.family not in FAMILIES:
-        raise ValueError(f"the port runs the {FAMILIES} families, got "
-                         f"{cfg.family!r}")
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = LY.embed(cfg, params["embed"], tokens.long(), positions)
+def _embed_inputs(cfg, params, tokens: torch.Tensor, image_embeds):
+    """(x (B, P + S, d), positions (P + S,)): the token embeddings, after
+    the llava family's projected image rows (P = 0 for the others)."""
+    S = tokens.shape[1]
+    dev = tokens.device
+    if cfg.family != "llava":
+        positions = torch.arange(S, device=dev)
+        return LY.embed(cfg, params["embed"], tokens.long(), positions), positions
+    if image_embeds is None:
+        raise ValueError("llava forward requires image_embeds")
+    P = image_embeds.shape[1]
+    img = image_embeds.to(LY.dtype_of(cfg)) @ params["mm_proj"]
+    positions = torch.arange(P + S, device=dev)
+    x = LY.embed(cfg, params["embed"], tokens.long(), positions[P:])
+    return torch.cat([img, x], dim=1), positions
+
+
+def _final_norm(cfg, params, x):
+    return LY.apply_norm(cfg, x, {"lnf_w": params["lnf_w"],
+                                  "lnf_b": params.get("lnf_b")}, "lnf")
+
+
+def check_family(cfg) -> None:
+    if cfg.family not in DENSE_FAMILIES:
+        raise ValueError(f"the transformer runs the {DENSE_FAMILIES} "
+                         f"families, got {cfg.family!r}")
+
+
+def forward(cfg, params, tokens: torch.Tensor, *,
+            image_embeds: Optional[torch.Tensor] = None,
+            use_lamp: bool = False, attn_impl: str = "auto"):
+    """tokens: (B, S) -> (logits (B, P + S, vocab) float32, aux) on the
+    tokens' device; for llava the stub frontend's `image_embeds` (B, P, d)
+    are projected and prepended (P = 0 for the other families). `use_lamp`
+    applies `cfg.lamp`'s KQ site (and, for the MoE family, its router
+    site, dispatched in one group); `attn_impl` is
+    ``layers.attention_sublayer``'s. aux holds the per-layer metrics
+    averaged over the layers (`attn_lamp_rate`, and the MoE's
+    `router_lamp_rate`, `kept_frac`, `moe_aux_loss`)."""
+    check_family(cfg)
+    x, positions = _embed_inputs(cfg, params, tokens, image_embeds)
     ctx = _ctx(cfg, positions, use_lamp, attn_impl)
     x, aux = scan_blocks(cfg, params["blocks"], x, ctx)
-    x = LY.apply_norm(cfg, x, {"lnf_w": params["lnf_w"],
-                               "lnf_b": params.get("lnf_b")}, "lnf")
-    return LY.unembed(cfg, params["embed"], x), aux
+    return LY.unembed(cfg, params["embed"], _final_norm(cfg, params, x)), aux
+
+
+def loss_fn(cfg, params, batch: Dict[str, torch.Tensor], *,
+            use_lamp: bool = False, attn_impl: str = "auto"):
+    """Next-token cross entropy (the value; its gradient comes with the
+    training slice). batch: {tokens (B, S), [image_embeds]}. Returns (loss,
+    metrics): the MoE family adds 0.01 x its load-balancing loss."""
+    tokens = batch["tokens"]
+    logits, aux = forward(cfg, params, tokens,
+                          image_embeds=batch.get("image_embeds"),
+                          use_lamp=use_lamp, attn_impl=attn_impl)
+    if cfg.family == "llava":
+        logits = logits[:, batch["image_embeds"].shape[1]:]
+    loss = next_token_nll(logits, tokens)
+    if cfg.family == "moe":
+        loss = loss + 0.01 * aux["moe_aux_loss"]
+    return loss, {"loss": loss, **aux}
+
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The mean NLL of tokens[:, 1:] under logits[:, :-1]."""
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = tokens[:, 1:].long()
+    return -torch.mean(torch.gather(logp, -1, tgt[..., None]))
+
+
+# ---------------------------------------------------------------------------
+# KV-cache serving (the static batch loop, ``runtime.serve_loop``)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cuda") -> Dict[str, torch.Tensor]:
+    """A dense cache: k, v (L, batch, max_len, Hkv, hd) and the fill
+    `length` (batch,) int32."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def prefill(cfg, params, tokens: torch.Tensor, cache: Dict[str, Any], *,
+            image_embeds: Optional[torch.Tensor] = None, use_lamp: bool = True,
+            attn_impl: str = "auto"):
+    """Run the whole prompt (behind llava's image rows), write its K/V at
+    positions 0 .. T - 1 of the cache in place, and return (last-position
+    logits (B, 1, V), cache) with length T. `attn_impl` "auto" is "full" up
+    to 2048 positions, else "chunked" (the relaxed rule, the site's
+    `onepass`). The MoE dispatch takes the capacity of the whole prompt."""
+    check_family(cfg)
+    B = tokens.shape[0]
+    x, positions = _embed_inputs(cfg, params, tokens, image_embeds)
+    T = x.shape[1]
+    ctx = _ctx(cfg, positions, use_lamp, attn_impl)
+    for l in range(cfg.n_layers):
+        p_l = layer_params(params["blocks"], l)
+        h = LY.apply_norm(cfg, x, p_l, "ln1")
+        q, k, v = LY._project_qkv(cfg, p_l["attn"], h, positions)
+        cache["k"][l, :, :T] = k.to(cache["k"].dtype)
+        cache["v"][l, :, :T] = v.to(cache["v"].dtype)
+        a, _ = LY.attention_out(cfg, p_l["attn"], q, k, v, ctx.lamp_kq,
+                                attn_impl=attn_impl)
+        x = x + a
+        h = LY.apply_norm(cfg, x, p_l, "ln2")
+        x = x + _ffn(cfg, p_l, h, ctx.lamp_router)
+    cache = {"k": cache["k"], "v": cache["v"],
+             "length": torch.full((B,), T, dtype=torch.int32, device=x.device)}
+    x = _final_norm(cfg, params, x[:, -1:])
+    return LY.unembed(cfg, params["embed"], x), cache
+
+
+def decode_step(cfg, params, cache: Dict[str, Any], tokens: torch.Tensor, *,
+                use_lamp: bool = True):
+    """One decode step. tokens: (B, 1). Writes the new K/V at `length` in
+    place and returns (logits (B, 1, V), cache with length + 1). The MoE
+    dispatch is dropless."""
+    check_family(cfg)
+    length = cache["length"]
+    x = LY.embed(cfg, params["embed"], tokens.long(), length.long()[:, None])
+    site = LY.kq_site(cfg, use_lamp)
+    r_site = _router_site(cfg, use_lamp)
+    for l in range(cfg.n_layers):
+        p_l = layer_params(params["blocks"], l)
+        h = LY.apply_norm(cfg, x, p_l, "ln1")
+        a, _, _, _ = LY.attention_decode_sublayer(
+            cfg, p_l["attn"], h, cache_k=cache["k"][l], cache_v=cache["v"][l],
+            length=length, lamp_site=site)
+        x = x + a
+        h = LY.apply_norm(cfg, x, p_l, "ln2")
+        x = x + _ffn(cfg, p_l, h, r_site, dropless=True)
+    x = _final_norm(cfg, params, x)
+    return LY.unembed(cfg, params["embed"], x), {
+        "k": cache["k"], "v": cache["v"], "length": length + 1}
 
 
 def _last_pad(valid_tok: torch.Tensor):
@@ -318,8 +422,7 @@ def paged_decode_step(cfg, params, arena, block_tables, lengths, tokens, *,
         x = x + _ffn(cfg, p_l, h, r_site, dropless=moe_dropless)
         nsel_l.append(nsel)
         nval_l.append(nval)
-    x = LY.apply_norm(cfg, x, {"lnf_w": params["lnf_w"],
-                               "lnf_b": params.get("lnf_b")}, "lnf")
+    x = _final_norm(cfg, params, x)
     nsel, nval = torch.stack(nsel_l), torch.stack(nval_l)
     if not per_layer:
         nsel, nval = nsel.sum(dim=0), nval.sum(dim=0)
@@ -429,8 +532,7 @@ def _paged_window_apply(cfg, params, tokens, arena, block_tables, starts,
         x = x + o @ p_l["attn"]["wo"]
         h = LY.apply_norm(cfg, x, p_l, "ln2")
         x = x + _ffn(cfg, p_l, h, r_site)
-    x = LY.apply_norm(cfg, x, {"lnf_w": params["lnf_w"],
-                               "lnf_b": params.get("lnf_b")}, "lnf")
+    x = _final_norm(cfg, params, x)
     nsel, nval = torch.stack(nsel_l), torch.stack(nval_l)
     if not per_layer:
         nsel, nval = nsel.sum(dim=0), nval.sum(dim=0)
@@ -591,8 +693,7 @@ def paged_audit_window(cfg, params, tokens, arena, block_tables, starts,
     rows = torch.arange(B, device=dev)
 
     def final(x):
-        x = LY.apply_norm(cfg, x, {"lnf_w": params["lnf_w"],
-                                   "lnf_b": params.get("lnf_b")}, "lnf")
+        x = _final_norm(cfg, params, x)
         x = x[rows, last][:, None]
         return LY.unembed(cfg, params["embed"], x)[:, 0].to(torch.float32)
 

@@ -1,5 +1,5 @@
-"""Per-row token sampling for the engine (port of
-``repro/serving/sampling.py:38-41,54,70,86,111,122``).
+"""Token sampling: per-row for the engine, and one key for the whole batch
+for the static loop (port of ``repro/serving/sampling.py``).
 
 Greedy rows (temperature <= 0) take the argmax, the first index among ties,
 exactly as the JAX package does. A sampled row adds Gumbel noise keyed on
@@ -30,6 +30,11 @@ torch's ``log`` is to XLA's (within 2 ulp). Keys are hashed on the host in
 numpy (a few words a row); the noise of all sampled rows is one batched
 computation on the logits' device in int64 tensors holding 32-bit words.
 
+``sample`` is the static loop's (``runtime.serve_loop``): one ``core.prng``
+key for the whole batch, the top-k filter, then the argmax at temperature
+<= 0, else the Gumbel-max draw of ``jax.random.gumbel(key, logits.shape)``
+(JAX's bits and uniforms, minval the smallest normal float32).
+
 Salts: speculative decoding draws several independent values per position
 (draft proposal, acceptance coin, residual resample); each folds its own
 salt into the key, and salt 0 is the plain sampler.
@@ -42,7 +47,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.prng import _M32, _bits, _uniform, threefry2x32
+from repro_torch.core.prng import _M32, _bits, _uniform, threefry2x32, uniform
 
 # key salts (folded after the position counter; 0 = the plain sampler)
 SALT_SAMPLE = 0
@@ -163,3 +168,15 @@ def sample_rows(logits: torch.Tensor, seeds: Sequence[int],
                    (lg.shape[-1],), dev)
     out[idx] = torch.argmax(lg / t[:, None] + g, dim=-1)
     return out
+
+
+def sample(logits: torch.Tensor, key: torch.Tensor, temperature: float,
+           top_k: int = 0) -> torch.Tensor:
+    """Single-key batch sampling (the static loop): logits (..., V) float32,
+    one ``core.prng`` key on the logits' device, a Python temperature
+    (greedy at <= 0). Returns int64 token ids of logits' leading shape."""
+    logits = apply_top_k(logits, top_k)
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    g = -torch.log(-torch.log(uniform(key, logits.shape, minval=_TINY)))
+    return torch.argmax(logits / temperature + g, dim=-1)

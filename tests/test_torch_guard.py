@@ -34,7 +34,10 @@ obs = {"repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.tracing",
        "repro_torch.serving.policy", "repro_torch.serving.sampling",
        "repro_torch.models.moe", "repro_torch.core.prng",
        "repro_torch.data.synthetic", "repro_torch.launch.paper_figs",
-       "repro_torch.launch.quickstart"}
+       "repro_torch.launch.quickstart", "repro_torch.models.api",
+       "repro_torch.models.hymba", "repro_torch.models.rwkv",
+       "repro_torch.models.whisper", "repro_torch.runtime.serve_loop",
+       "repro_torch.launch.serve_lamp"}
 assert obs <= set(names), names
 for name in names:
     importlib.import_module(name)
