@@ -213,6 +213,31 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            lamp_logits_softmax's mask and rate on the card equal to the
            CPU's and above 0, on that prompt's FP32 forward logits over
            rwkv6's 65,536-word vocabulary, x 4
+  train    training (launch.steps.make_train_step: autograd through the
+           family's loss with every layer rematerialized, AdamW; plain
+           PyTorch, no kernel: every wrapper's launch count must stay
+           still). (a) gpt2-small at its published widths and depth, FP32,
+           TF32 off: one step on the card against the same step on the
+           CPU (same seeded weights, 2 x 128 synthetic tokens): loss,
+           grad_norm, the params' update and the gradient of every leaf
+           and of every layer's slice (nonzero) within TRAIN_LOSS_RTOL,
+           TRAIN_GNORM_RTOL, TRAIN_UPDATE_REL and TRAIN_GRAD_REL; then
+           runtime.train_loop.train on the card, 8 x 1024 SyntheticDataset
+           tokens for 30 steps with a checkpoint every 10 into a temporary
+           directory, resumed to 40: every loss finite, the last 5 steps'
+           mean below the first step's by TRAIN_LOSS_DROP, the resumed run
+           exactly 10 steps, step 29's checkpoint restored bit for bit; ms
+           a step and tokens/s of TRAIN_TIMED_STEPS synchronized steps, and
+           max_memory_allocated; the learning gate: LEARN_STEPS steps on a
+           64-word Markov stream end below LEARN_LOSS_MAX, and the same
+           run with the blocks' gradients dropped (the control) above it.
+           (b) qwen3-moe-30b-a3b at its published widths, 2 of 48 layers,
+           bfloat16 (router FP32), 2 x 64 tokens, 3 steps: every leaf's
+           gradient finite, the router's nonzero on each layer, the step-1
+           loss within MOE_TRAIN_LOSS_RTOL and the forward's logits within
+           MOE_TRAIN_LOGIT_REL of the FP32 forward of the same weights,
+           with the MoE output dropped (controls) beyond them, params
+           finite in their dtypes
 
 The loud rule holds for every engine run of every phase but the ladder
 exhaustion run: no recovery through the gather or FP32 rung (they run the
@@ -1317,6 +1342,7 @@ def phase_gather(params, cfg, gather_arm):
     token everywhere, and the per-request count differences are measured;
     glm4-9b-2l runs again with its weights in FP32, to tell the bfloat16
     drift apart."""
+    from repro_torch.core import tree as T
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import transformer as TT
     ok_all = True
@@ -1327,7 +1353,7 @@ def phase_gather(params, cfg, gather_arm):
     # the same weights in FP32: whether the bfloat16 run's drift is the
     # bfloat16 rounding of the hidden state (printed, not gated)
     fcfg = dcfg.replace(dtype="float32", name="glm4-9b-2l-fp32")
-    fparams = TT.map_params(dparams, lambda t: t.float())
+    fparams = T.map(lambda t: t.float(), dparams)
     for c, p, gather in ((cfg, params, gather_arm), (dcfg, dparams, None),
                          (fcfg, fparams, None)):
         shadow = Shadow()
@@ -1877,6 +1903,7 @@ def audit_registry_checks(eng, outs, max_rows):
 
 def phase_audit(params, cfg, ref_tokens):
     """The shadow audit on the card (module docstring)."""
+    from repro_torch.core import tree as T
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import transformer as TT
     from repro_torch.serving import AuditConfig, PolicyConfig
@@ -1974,7 +2001,7 @@ def phase_audit(params, cfg, ref_tokens):
             top_k=audit_all.top_k)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cpu_params = TT.map_params(params, lambda t: t.cpu())
+        cpu_params = T.map(lambda t: t.cpu(), params)
         host = TT.paged_audit_window(scfg, cpu_params, args[0],
                                      {"k": hk, "v": hv}, *args[1:],
                                      taus=htaus, top_k=audit_all.top_k)
@@ -2318,6 +2345,7 @@ def moe_arms(params, cfg, checks, tag):
 def phase_moe():
     """The MoE family on the card (module docstring)."""
     import gc
+    from repro_torch.core import tree as T
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import transformer as TT
     from repro_torch.serving import AuditConfig
@@ -2330,9 +2358,7 @@ def phase_moe():
     params = TT.init_params(cfg, 0, device=DEVICE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = []
-    TT.map_params(params, leaves.append)
-    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in T.leaves(params))
     L = cfg.n_layers
     site = TT._kq_site(cfg, True)
     dsite = TT._kq_site(draft_model_config(cfg), True)
@@ -2345,7 +2371,7 @@ def phase_moe():
     n_tok = sum(len(t) for t in co.values())
     peak_bf16 = torch.cuda.max_memory_allocated()
     fcfg = cfg.replace(dtype="float32", name=cfg.name + "-fp32")
-    fparams = TT.map_params(params, lambda t: t.float())
+    fparams = T.map(lambda t: t.float(), params)
     arms_fp32, _ = moe_arms(fparams, fcfg, checks, "fp32_")
     del fparams
     # 3. speculation on (fused, draft_len 4), under Shadow
@@ -2479,15 +2505,16 @@ def paper_card_vs_cpu(cfg, params, tokens, checks):
     chunked_attention_lamp's two-pass count equal to attention_lamp's
     relaxed count and its one-pass count at least that."""
     from repro_torch.core import attention as CA
+    from repro_torch.core import tree as T
     from repro_torch.core.policy import LampPolicy, LampSite
     from repro_torch.launch import paper_figs as PF
     from repro_torch.models import transformer as TT
     L, S = PAPER_CPU_LAYERS, PAPER_CPU_SEQ
     cfg2 = cfg.replace(n_layers=L)
-    p2 = dict(params, blocks=TT.map_params(params["blocks"], lambda t: t[:L]))
+    p2 = dict(params, blocks=T.map(lambda t: t[:L], params["blocks"]))
     toks = tokens[:, :S]
     strict = LampPolicy.paper_default(rule="strict", **PAPER_SITE)
-    cpu_params = TT.map_params(p2, lambda t: t.cpu())
+    cpu_params = T.map(lambda t: t.cpu(), p2)
 
     def rel(a, b):
         return float((a.cpu() - b).abs().max() / b.abs().max())
@@ -2764,13 +2791,13 @@ def static_card_vs_cpu(cfg, seed, checks, tag):
     whose CPU top-2 gap is below the gate; prefill(S - 1) + decode(1)
     against the card's teacher-forced forward. Returns the readings, the
     check batch and the CPU's prefill logits."""
+    from repro_torch.core import tree as T
     from repro_torch.launch.serve_lamp import make_batch
     from repro_torch.models import api
-    from repro_torch.models.transformer import map_params
     from repro_torch.runtime.serve_loop import ServeConfig, generate
     cfg32 = cfg.replace(dtype="float32")
     cpu_params = api.init_params(cfg32, seed, "cpu")
-    params = map_params(cpu_params, lambda t: t.to(DEVICE))
+    params = T.map(lambda t: t.to(DEVICE), cpu_params)
     S = STATIC_RWKV_PROMPT if cfg.family == "rwkv6" else STATIC_PROMPT
     cpu_batch = make_batch(cfg, STATIC_CHECK_BATCH, S, "cpu", seed=seed + 1)
     batch = {k: v.to(DEVICE) for k, v in cpu_batch.items()}
@@ -3038,6 +3065,383 @@ def phase_static():
             f"{ {k: v for k, v in checks.items() if not v} }")
 
 
+# --------------------------------------------------------------- train
+
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 128
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_STEPS, TRAIN_RESUME_TO, TRAIN_CKPT_EVERY = 30, 40, 10
+TRAIN_TIMED_STEPS = 5
+# one FP32 step of the full-width model, card against CPU: both sum their
+# products in their own orders (cuBLAS, TF32 off, against the CPU's BLAS),
+# through 12 layers forward and back
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+# the update (new params - old) of the whole model in the L2 norm: Adam's
+# first step is lr * g / (|g| + eps), about lr * sign(g), so an entry whose
+# gradient is within roundoff of 0 may move the other way on the other
+# device; a per-entry bound does not hold, the norm over all entries does
+TRAIN_UPDATE_REL = 1e-3
+# the gradient of every leaf, and of every layer's slice of a block leaf,
+# card against CPU in the relative L2 (read from the first step's Adam m,
+# (1 - b1) x the clipped gradient): a layer the card's backward missed
+# reads 1
+TRAIN_GRAD_REL = 1e-3
+# the loop's loss falls: the mean of the last 5 of 40 steps at least this
+# many nats below the first step's. On the Markov stream over all 50,257
+# words, at lr 3e-4, 40 steps learn no next-token structure: the loss
+# falls from the random logits' spread towards a uniform guess (ln 50257
+# = 10.825), by 0.117 nats (10.985 to 10.868); with no update it would
+# not fall (the batches' spread is about 0.01). So this gate shows that
+# the loop updates the model; the learning gate below, that what it
+# learns needs the blocks' gradients
+TRAIN_LOSS_DROP = 0.05
+# learning shows: the Markov stream over 64 of the words (8 successors a
+# word: ln 64 = 4.159 nats for a uniform guess over them, ln 8 = 2.079
+# with every transition learnt), 8 x 256 tokens, lr 1e-3, LEARN_STEPS
+# steps from the seeded weights. The mean loss of the last 5 must be
+# below LEARN_LOSS_MAX, and the control's, the same run with the blocks'
+# gradients dropped (the backward reaching the embedding and the final
+# norm alone), above it. The card read 2.410 and 3.313 (PERF.md section
+# 6, PR 29 call 14): the limit halves the gap
+LEARN_VOCAB, LEARN_BATCH, LEARN_SEQ, LEARN_LR, LEARN_STEPS = 64, 8, 256, 1e-3, 60
+LEARN_LOSS_MAX = 2.85
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 64, 3
+# the bfloat16 model's step-1 loss and forward logits against the FP32
+# forward of the same weights, each limit between the sound reading and a
+# control read in the same run (the MoE output dropped: every layer's
+# experts' we_out zeroed, or the last layer's alone). At random init the
+# loss is mostly the unembedding's, so it moves little: 5.1e-4 sound
+# against 2.5e-3 with every layer's experts dropped (and 2.6e-4, under the
+# sound reading, with the last layer's alone); the logits' relative L2
+# sees both: 0.070 sound (bfloat16 roundings and the router choices near a
+# tie that they flip), 0.41 and 0.198 dropped (PERF.md section 6, PR 29
+# call 14)
+MOE_TRAIN_LOSS_RTOL = 1.2e-3
+MOE_TRAIN_LOGIT_REL = 0.12
+
+
+def kernel_launches():
+    """Every hand-written kernel wrapper's launch count."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch import kernels_micro as KM
+    return {"paged_mixed_attention": PA._wrapper.launches,
+            **{n: w.launches for n, w in KM.WRAPPERS.items()}}
+
+
+def train_card_vs_cpu(cfg, checks):
+    """One make_train_step step of the full-width model on the card and on
+    the CPU, from the same seeded weights and batch."""
+    from repro_torch.core import tree as T
+    from repro_torch.data.synthetic import DataConfig, SyntheticDataset
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    opt_cfg = adamw.AdamWConfig()
+    step = ST.make_train_step(cfg, opt_cfg)
+    tokens = torch.from_numpy(SyntheticDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_CHECK_SEQ,
+        global_batch=TRAIN_CHECK_BATCH)).batch_at(0)["tokens"])
+    p0 = api.init_params(cfg, 0, device="cpu")
+    t0 = time.perf_counter()
+    cpu_p, cpu_o, cpu_m = step(p0, adamw.init_state(p0), {"tokens": tokens})
+    cpu_s = time.perf_counter() - t0
+    card_p0 = T.map(lambda t: t.to(DEVICE), p0)
+    card_p, card_o, card_m = step(card_p0, adamw.init_state(card_p0),
+                                  {"tokens": tokens.to(DEVICE)})
+    del card_p0
+    num = den = 0.0
+    worst_leaf, max_entry = 0.0, 0.0
+    for a, c, b in zip(T.leaves(card_p), T.leaves(cpu_p), T.leaves(p0)):
+        d = a.cpu().double() - c.double()
+        u = c.double() - b.double()
+        num += float(torch.sum(d * d))
+        den += float(torch.sum(u * u))
+        worst_leaf = max(worst_leaf, float(torch.linalg.norm(d))
+                         / max(float(torch.linalg.norm(u)), 1e-30))
+        max_entry = max(max_entry, float(torch.max(torch.abs(d))))
+    # each leaf's gradient, and each layer's slice of a block leaf
+    grad_rel, grad_zero = {}, []
+    for (path, a), c in zip(T.flatten_with_path(card_o.m), T.leaves(cpu_o.m)):
+        a = a.cpu().double()
+        c = c.double()
+        slices = ([(f"{'/'.join(path)}[{l}]", a[l], c[l])
+                   for l in range(cfg.n_layers)] if path[0] == "blocks"
+                  else [("/".join(path), a, c)])
+        for name, x, y in slices:
+            ny = float(torch.linalg.norm(y))
+            if ny == 0.0:
+                grad_zero.append(name)
+            grad_rel[name] = float(torch.linalg.norm(x - y)) / max(ny, 1e-30)
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    checks["train_step_grads"] = grad_rel[worst_grad] <= TRAIN_GRAD_REL
+    checks["train_step_grads_nonzero"] = not grad_zero
+    rel = {k: abs(float(card_m[k]) - float(cpu_m[k])) / abs(float(cpu_m[k]))
+           for k in ("loss", "grad_norm")}
+    update_rel = (num / den) ** 0.5
+    checks["train_step_loss"] = rel["loss"] <= TRAIN_LOSS_RTOL
+    checks["train_step_grad_norm"] = rel["grad_norm"] <= TRAIN_GNORM_RTOL
+    checks["train_step_update"] = update_rel <= TRAIN_UPDATE_REL
+    # no entry moves further apart than a sign flip of one Adam step
+    checks["train_step_entries"] = max_entry <= 2.0 * opt_cfg.lr * (1 + 1e-3)
+    checks["train_step_state"] = int(card_o.step) == 1
+    return {"loss_card": float(card_m["loss"]), "loss_cpu": float(cpu_m["loss"]),
+            "loss_rel": rel["loss"], "grad_norm_card": float(card_m["grad_norm"]),
+            "grad_norm_rel": rel["grad_norm"], "update_rel": update_rel,
+            "update_rel_worst_leaf": worst_leaf, "max_entry_apart": max_entry,
+            "grad_rel_worst": [worst_grad, grad_rel[worst_grad]],
+            "grad_slices": len(grad_rel), "grad_zero": grad_zero,
+            "cpu_step_s": cpu_s}
+
+
+def train_loop_on_card(cfg, checks):
+    """runtime.train on the card, checkpointed, resumed; then timed steps."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import tree as T
+    from repro_torch.data.synthetic import DataConfig, SyntheticDataset
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import TrainLoopConfig, train
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH)
+    with tempfile.TemporaryDirectory() as ckpt:
+        loop = TrainLoopConfig(total_steps=TRAIN_STEPS,
+                               checkpoint_every=TRAIN_CKPT_EVERY,
+                               log_every=TRAIN_CKPT_EVERY, checkpoint_dir=ckpt)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = train(cfg, loop, data_cfg=data_cfg, device=DEVICE)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        second = train(cfg, dataclasses.replace(loop,
+                                                total_steps=TRAIN_RESUME_TO),
+                       data_cfg=data_cfg, device=DEVICE)
+        second_s = time.perf_counter() - t0
+        max_mem = torch.cuda.max_memory_allocated()
+        mgr = CheckpointManager(ckpt)
+        kept = sorted(p for p in os.listdir(ckpt) if p.startswith("step_"))
+        saved = {"params": first["params"], "opt": first["opt"]}
+        back = mgr.restore(saved, step=TRAIN_STEPS - 1)
+        checks["train_restore_bit_for_bit"] = all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(T.leaves(back), T.leaves(saved)))
+        del back, saved, first["params"], first["opt"]
+    losses = [m["loss"] for m in first["metrics"] + second["metrics"]]
+    checks["train_steps_run"] = (len(first["metrics"]) == TRAIN_STEPS and
+                                 len(second["metrics"]) ==
+                                 TRAIN_RESUME_TO - TRAIN_STEPS)
+    checks["train_losses_finite"] = all(np.isfinite(losses))
+    last5 = float(np.mean(losses[-5:]))
+    checks["train_loss_falls"] = last5 <= losses[0] - TRAIN_LOSS_DROP
+    checks["train_opt_step"] = int(second["opt"].step) == TRAIN_RESUME_TO
+    # TRAIN_TIMED_STEPS more steps of the loop's step function, each timed
+    # to its end on the card
+    step = ST.make_train_step(cfg, adamw.AdamWConfig())
+    data = SyntheticDataset(data_cfg)
+    params, opt = second["params"], second["opt"]
+    times = []
+    for i in range(TRAIN_TIMED_STEPS):
+        batch = {"tokens": torch.from_numpy(
+            data.batch_at(TRAIN_RESUME_TO + i)["tokens"]).to(DEVICE)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    return {"losses": losses, "first_loss": losses[0], "last5_mean": last5,
+            "drop": losses[0] - last5, "checkpoints_kept": kept,
+            "first_run_s": first_s, "resumed_run_s": second_s,
+            "loop_ms_per_step": 1e3 * (first_s + second_s) / TRAIN_RESUME_TO,
+            "ms_per_step": ms, "step_ms_all": [t * 1e3 for t in times],
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+            "max_memory_allocated": max_mem}
+
+
+def train_learning_on_card(cfg, checks):
+    """The learning gate (LEARN_* above): make_train_step's run and its
+    control, the blocks' gradients dropped, on the 64-word Markov stream."""
+    from repro_torch.core import tree as T
+    from repro_torch.data.synthetic import DataConfig, SyntheticDataset
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    opt_cfg = adamw.AdamWConfig(lr=LEARN_LR)
+    data = SyntheticDataset(DataConfig(vocab=LEARN_VOCAB, seq_len=LEARN_SEQ,
+                                       global_batch=LEARN_BATCH))
+    batches = [{"tokens": torch.from_numpy(data.batch_at(i)["tokens"])
+                .to(DEVICE)} for i in range(LEARN_STEPS)]
+    step = ST.make_train_step(cfg, opt_cfg)
+
+    def control_step(params, opt, batch):
+        (loss, _), grads = ST.value_and_grad(
+            lambda p, b: api.loss_fn(cfg, p, b), params, batch)
+        grads["blocks"] = T.map(torch.zeros_like, grads["blocks"])
+        params, opt, m = adamw.apply_updates(opt_cfg, params, grads, opt)
+        return params, opt, {"loss": loss, **m}
+
+    out = {}
+    for name, fn in (("sound", step), ("blocks_gradient_dropped",
+                                       control_step)):
+        params = api.init_params(cfg, 0, device=DEVICE)
+        opt = adamw.init_state(params)
+        losses = []
+        for b in batches:
+            params, opt, m = fn(params, opt, b)
+            losses.append(float(m["loss"]))
+        del params, opt
+        out[name] = {"first": losses[0], "last5_mean":
+                     float(np.mean(losses[-5:])), "every_10": losses[::10]}
+    checks["train_learns"] = out["sound"]["last5_mean"] <= LEARN_LOSS_MAX
+    checks["train_learns_control"] = \
+        out["blocks_gradient_dropped"]["last5_mean"] > LEARN_LOSS_MAX
+    return out
+
+
+def train_moe_on_card(checks):
+    """The MoE family's backward and AdamW's bfloat16 cast on the card."""
+    import gc
+    from repro_torch.core import tree as T
+    from repro_torch.data.synthetic import DataConfig, SyntheticDataset
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    cfg = moe_2_layers()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, 0, device=DEVICE)
+    init_s = time.perf_counter() - t0
+    data = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=MOE_TRAIN_SEQ,
+                                       global_batch=MOE_TRAIN_BATCH))
+    batches = [{"tokens": torch.from_numpy(data.batch_at(i)["tokens"])
+                .to(DEVICE)} for i in range(MOE_TRAIN_STEPS)]
+    cfg32 = cfg.replace(dtype="float32")
+    with torch.no_grad():
+        p32 = T.map(lambda t: t.float(), params)
+        loss32, _ = api.loss_fn(cfg32, p32, batches[0], remat=False)
+        loss32 = float(loss32)
+        logits32 = api.forward_logits(cfg32, p32, batches[0]).float()
+        del p32
+
+        def reading():
+            loss, _ = api.loss_fn(cfg, params, batches[0], remat=False)
+            lg = api.forward_logits(cfg, params, batches[0]).float()
+            return (abs(float(loss) - loss32) / abs(loss32),
+                    float(torch.linalg.norm(lg - logits32)
+                          / torch.linalg.norm(logits32)))
+        sound = reading()
+        # the controls: the MoE output dropped, in every layer and in the
+        # last alone, then the weights put back
+        we_out = params["blocks"]["moe"]["we_out"]
+        controls = {}
+        for name, rows in (("all_layers_experts_dropped", slice(None)),
+                           ("last_layer_experts_dropped", slice(-1, None))):
+            keep = we_out[rows].clone()
+            we_out[rows] = 0
+            controls[name] = reading()
+            we_out[rows] = keep
+            del keep
+        del logits32
+    (loss1, _), grads = ST.value_and_grad(
+        lambda p, b: api.loss_fn(cfg, p, b), params, batches[0])
+    checks["moe_train_grads_finite"] = all(
+        bool(torch.isfinite(g).all()) for g in T.leaves(grads))
+    checks["moe_train_grad_dtypes"] = all(
+        g.dtype == p.dtype for g, p in zip(T.leaves(grads), T.leaves(params)))
+    router = grads["blocks"]["moe"]["router"]
+    router_norms = [float(torch.linalg.norm(router[l]))
+                    for l in range(cfg.n_layers)]
+    checks["moe_train_router_grad"] = all(n > 0 for n in router_norms)
+    del grads
+    step = ST.make_train_step(cfg, adamw.AdamWConfig())
+    opt = adamw.init_state(params)
+    losses, gnorms, times = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    rel = abs(losses[0] - loss32) / abs(loss32)
+    checks["moe_train_losses_finite"] = all(np.isfinite(losses + gnorms))
+    checks["moe_train_loss_vs_fp32"] = rel <= MOE_TRAIN_LOSS_RTOL
+    checks["moe_train_logits_vs_fp32"] = sound[1] <= MOE_TRAIN_LOGIT_REL
+    # the gates tell the controls from the sound model
+    checks["moe_train_loss_control"] = \
+        controls["all_layers_experts_dropped"][0] > MOE_TRAIN_LOSS_RTOL
+    checks["moe_train_logits_control"] = all(
+        c[1] > MOE_TRAIN_LOGIT_REL for c in controls.values())
+    checks["moe_train_params"] = all(
+        bool(torch.isfinite(p.float()).all()) for p in T.leaves(params)) and \
+        params["blocks"]["moe"]["router"].dtype == torch.float32 and \
+        params["blocks"]["moe"]["we_in"].dtype == torch.bfloat16
+    n_params = sum(p.numel() for p in T.leaves(params))
+    out = {"config": cfg.name, "dtype": cfg.dtype, "n_params": n_params,
+           "params_init_s": init_s, "loss_fp32": loss32,
+           "loss_value_and_grad": float(loss1), "losses": losses,
+           "grad_norms": gnorms, "loss_rel_fp32": rel,
+           "logit_rel_fp32": sound[1], "forward_loss_rel_fp32": sound[0],
+           "controls": {k: {"loss_rel_fp32": v[0], "logit_rel_fp32": v[1]}
+                        for k, v in controls.items()},
+           "router_grad_norms": router_norms,
+           "step_ms": [t * 1e3 for t in times],
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del params, opt
+    return out
+
+
+def phase_train():
+    """Training on the card (module docstring)."""
+    import gc
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = kernel_launches()
+    checks = {}
+    cfg = gpt2_small()
+    step = train_card_vs_cpu(cfg, checks)
+    emit("train_step", card=smi, config=cfg.name, batch=TRAIN_CHECK_BATCH,
+         seq=TRAIN_CHECK_SEQ, gates=dict(loss_rtol=TRAIN_LOSS_RTOL,
+                                         grad_norm_rtol=TRAIN_GNORM_RTOL,
+                                         update_rel=TRAIN_UPDATE_REL,
+                                         grad_rel=TRAIN_GRAD_REL), **step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    loop = train_loop_on_card(cfg, checks)
+    print(f"train: gpt2-small {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{loop['ms_per_step']:.1f} ms a step, "
+          f"{loop['tokens_per_s']:.0f} tokens/s, max_memory_allocated "
+          f"{loop['max_memory_allocated'] / 2**30:.2f} GiB on {smi}",
+          flush=True)
+    emit("train_loop", card=smi, config=cfg.name, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, steps=TRAIN_STEPS, resumed_to=TRAIN_RESUME_TO,
+         loss_drop_gate=TRAIN_LOSS_DROP, **loop)
+    gc.collect()
+    torch.cuda.empty_cache()
+    learn = train_learning_on_card(cfg, checks)
+    emit("train_learn", card=smi, config=cfg.name, vocab=LEARN_VOCAB,
+         batch=LEARN_BATCH, seq=LEARN_SEQ, lr=LEARN_LR, steps=LEARN_STEPS,
+         loss_max_gate=LEARN_LOSS_MAX, **learn)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = train_moe_on_card(checks)
+    emit("train_moe", card=smi, batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ,
+         loss_rtol_gate=MOE_TRAIN_LOSS_RTOL,
+         logit_rel_gate=MOE_TRAIN_LOGIT_REL, **moe)
+    after = kernel_launches()
+    checks["train_no_kernel_launch"] = after == before
+    emit("train", card=smi, launches_before=before, launches_after=after,
+         seconds=time.perf_counter() - t0, checks=checks,
+         ok=all(checks.values()))
+    require(all(checks.values()), f"train phase failed its checks: "
+            f"{ {k: v for k, v in checks.items() if not v} }")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_device()
@@ -3068,6 +3472,7 @@ def main() -> int:
     phase_moe()
     phase_paper()
     phase_static()
+    phase_train()
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows + micro_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -101,3 +101,44 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, minval=minval)`` (maxval 1):
     float32 of `shape` on key's device."""
     return _uniform(bits(key, shape), minval)
+
+
+# XLA's float32 erf_inv (M. Giles' single-precision approximation, as
+# ``xla/client/lib/math.cc`` spells it): a degree-8 polynomial in
+# w - 2.5 for w = -log(1 - x^2) < 5, else in sqrt(w) - 3
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 erf^-1 by XLA's polynomial (``lax.erf_inv``); +-1 give
+    +-Inf. The log1p runs in float64 and rounds once to float32: PyTorch's
+    float32 log1p on the CPU differs by an ulp between its vectorized and
+    its scalar loop, which split a tensor by the thread count, and near
+    x = +-1 erf^-1 turns an ulp of w into 1e-3."""
+    w = -torch.log1p((-x * x).double()).float()
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=x.dtype,
+                                            device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], dtype=x.dtype,
+                                        device=x.device))
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = coef(i) + p * w
+    return torch.where(torch.abs(x) == 1.0, x * float("inf"), p * x)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape)``, float32 on key's device: a
+    uniform in (nextafter(-1, 0), 1) mapped through sqrt(2) erf^-1."""
+    u = uniform(key, shape, float(np.nextafter(np.float32(-1.0),
+                                               np.float32(0.0))))
+    return torch.tensor(math.sqrt(2), dtype=torch.float32,
+                        device=u.device) * erf_inv(u)

@@ -1,7 +1,7 @@
 """One model API across all families (port of ``repro/models/api.py``).
 
     init_params(cfg, seed, device)              -> params dictionary
-    loss_fn(cfg, params, batch, **kw)           -> (loss, metrics)
+    loss_fn(cfg, params, batch, **kw)           -> (loss, metrics) [train]
     forward_logits(cfg, params, batch, **kw)    -> logits
     init_cache(cfg, batch_size, max_len, dtype, device) -> cache / state
     prefill(cfg, params, batch, cache, **kw)    -> (last_logits, cache)
@@ -12,6 +12,8 @@ whisper; image_embeds (B, P, d) for llava. The modality frontends are
 stubs: those tensors arrive precomputed. The weights are drawn from a
 seeded torch generator (``transformer.init_params``), not JAX's bits.
 Where a family takes fewer arguments, the JAX package's pops drop them.
+`loss_fn` passes `remat` on to every family (on by default, as in the JAX
+package: each layer is checkpointed for the backward).
 """
 
 from __future__ import annotations

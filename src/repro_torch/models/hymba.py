@@ -26,10 +26,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import attention as CA
+from repro_torch.core import tree as T
 from repro_torch.core.policy import LampSite
 
 from . import layers as LY
-from .transformer import layer_params, map_params, next_token_nll, resolve_device
+from .transformer import layer_params, next_token_nll, resolve_device
 
 CONV_K = 4
 # kept in FP32 in every model dtype, as in the JAX package
@@ -70,7 +71,7 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
               "blocks": blocks,
               "lnf_w": torch.zeros((d,))}
     dt = LY.dtype_of(cfg)
-    params = map_params(params, lambda t: t.to(device=device, dtype=dt))
+    params = T.map(lambda t: t.to(device=device, dtype=dt), params)
     for k in _FP32_LEAVES:
         params["blocks"][k] = blocks[k].to(device)
     return params
@@ -160,16 +161,18 @@ def _embed_with_meta(cfg, params, tokens):
 
 
 def forward(cfg, params, tokens, *, use_lamp: bool = False,
-            attn_impl: str = "auto", **_):
+            attn_impl: str = "auto", remat: bool = False, **_):
     """tokens (B, S) from a zero state -> (logits (B, S, V) float32, new
-    state, aux with the layers' mean `attn_lamp_rate`)."""
+    state, aux with the layers' mean `attn_lamp_rate`). `remat`
+    checkpoints each layer (``layers.remat_call``)."""
     M = cfg.n_meta_tokens
     x, positions = _embed_with_meta(cfg, params, tokens)
     site = LY.kq_site(cfg, use_lamp)
     state = init_state(cfg, tokens.shape[0], device=tokens.device)
     convs, ssms, rates = [], [], []
     for l in range(cfg.n_layers):
-        x, st, rate, _ = block_apply(
+        x, st, rate, _ = LY.remat_call(
+            remat, block_apply,
             cfg, layer_params(params["blocks"], l), x, positions=positions,
             lamp_site=site, attn_impl=attn_impl,
             state={"conv": state["conv"][l], "ssm": state["ssm"][l]})
@@ -182,9 +185,11 @@ def forward(cfg, params, tokens, *, use_lamp: bool = False,
         {"attn_lamp_rate": torch.mean(torch.stack(rates))}
 
 
-def loss_fn(cfg, params, batch, *, use_lamp: bool = False, **_):
-    """Next-token cross entropy (the value). Returns (loss, metrics)."""
-    logits, _, aux = forward(cfg, params, batch["tokens"], use_lamp=use_lamp)
+def loss_fn(cfg, params, batch, *, use_lamp: bool = False, remat: bool = True,
+            **_):
+    """Next-token cross entropy. Returns (loss, metrics)."""
+    logits, _, aux = forward(cfg, params, batch["tokens"], use_lamp=use_lamp,
+                             remat=remat)
     loss = next_token_nll(logits, batch["tokens"])
     return loss, {"loss": loss, **aux}
 

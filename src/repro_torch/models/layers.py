@@ -13,6 +13,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import attention as A
 from repro_torch.core import prng
@@ -42,6 +43,16 @@ def paged_attention_fns(kernel: str):
     if kernel == "cuda":
         return PA.paged_mixed_attention, PA.paged_decode_attention
     return PA.paged_mixed_attention_plain, PA.paged_decode_attention_plain
+
+
+def remat_call(remat: bool, fn, *args, **kwargs):
+    """fn(*args, **kwargs); with `remat`, under activation checkpointing
+    (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
+    fn's activations instead of keeping them, as ``jax.checkpoint`` wraps
+    the JAX package's layer-scan body."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
 def dtype_of(cfg) -> torch.dtype:

@@ -23,8 +23,10 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import tree as T
+
 from . import layers as LY
-from .transformer import layer_params, map_params, next_token_nll, resolve_device
+from .transformer import layer_params, next_token_nll, resolve_device
 
 LORA_R = 32
 HEAD_DIM = 64
@@ -76,7 +78,7 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
     params = {"embed": LY.embed_params(cfg, gen), "blocks": blocks,
               "lnf_w": torch.ones((d,)), "lnf_b": torch.zeros((d,))}
     dt = LY.dtype_of(cfg)
-    return map_params(params, lambda t: t.to(device=device, dtype=dt))
+    return T.map(lambda t: t.to(device=device, dtype=dt), params)
 
 
 def _ddlerp(p, x, x_prev):
@@ -200,8 +202,10 @@ def init_state(cfg, batch: int, device="cuda") -> Dict[str, torch.Tensor]:
             "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
-def forward(cfg, params, tokens, *, state=None, wkv_chunk: int = 0, **_):
-    """Full-sequence forward. Returns (logits (B, S, V), new state, {})."""
+def forward(cfg, params, tokens, *, state=None, wkv_chunk: int = 0,
+            remat: bool = False, **_):
+    """Full-sequence forward. Returns (logits (B, S, V), new state, {}).
+    `remat` checkpoints each layer (``layers.remat_call``)."""
     B, S = tokens.shape
     x = LY.embed(cfg, params["embed"], tokens.long(),
                  torch.arange(S, device=tokens.device))
@@ -209,9 +213,10 @@ def forward(cfg, params, tokens, *, state=None, wkv_chunk: int = 0, **_):
         state = init_state(cfg, B, device=tokens.device)
     outs = []
     for l in range(cfg.n_layers):
-        x, st = block_apply(cfg, layer_params(params["blocks"], l), x,
-                            {k: state[k][l] for k in ("S", "tm_x", "cm_x")},
-                            wkv_chunk=wkv_chunk)
+        x, st = LY.remat_call(remat, block_apply, cfg,
+                              layer_params(params["blocks"], l), x,
+                              {k: state[k][l] for k in ("S", "tm_x", "cm_x")},
+                              wkv_chunk=wkv_chunk)
         outs.append(st)
     x = LY.layer_norm(x, params["lnf_w"], params["lnf_b"])
     new_state = {k: torch.stack([o[k] for o in outs])
@@ -220,10 +225,10 @@ def forward(cfg, params, tokens, *, state=None, wkv_chunk: int = 0, **_):
     return LY.unembed(cfg, params["embed"], x), new_state, {}
 
 
-def loss_fn(cfg, params, batch, **_):
-    """Next-token cross entropy (the value), on the step scan. Returns
-    (loss, metrics)."""
-    logits, _, aux = forward(cfg, params, batch["tokens"])
+def loss_fn(cfg, params, batch, *, remat: bool = True, **_):
+    """Next-token cross entropy, on the step scan. Returns (loss,
+    metrics)."""
+    logits, _, aux = forward(cfg, params, batch["tokens"], remat=remat)
     loss = next_token_nll(logits, batch["tokens"])
     return loss, {"loss": loss, **aux}
 

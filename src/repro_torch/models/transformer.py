@@ -45,6 +45,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import tree as T
 from repro_torch.core.policy import LampSite
 
 from . import layers as LY
@@ -97,23 +98,16 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
     if cfg.family == "llava":
         params["mm_proj"] = LY.normal(gen, (d, d), d ** -0.5)
     dt = LY.dtype_of(cfg)
-    params = map_params(params, lambda t: t.to(device=device, dtype=dt))
+    params = T.map(lambda t: t.to(device=device, dtype=dt), params)
     if cfg.family == "moe":
         # the router stays FP32 in every model dtype, as in the JAX package
         params["blocks"]["moe"]["router"] = blocks["moe"]["router"].to(device)
     return params
 
 
-def map_params(tree, fn):
-    """Apply `fn` to every tensor of a nested parameter dictionary."""
-    if isinstance(tree, dict):
-        return {k: map_params(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
 def layer_params(blocks: Dict[str, Any], l: int) -> Dict[str, Any]:
     """Layer l's slice of the stacked block parameters (views, no copy)."""
-    return map_params(blocks, lambda t: t[l])
+    return T.map(lambda t: t[l], blocks)
 
 
 def init_paged_cache(cfg, n_blocks: int, block_size: int,
@@ -178,11 +172,13 @@ def block_apply(cfg, p, x, ctx: BlockCtx):
     return x + m, aux
 
 
-def scan_blocks(cfg, blocks, x, ctx: BlockCtx):
-    """The layer stack: each aux metric averaged over the layers."""
+def scan_blocks(cfg, blocks, x, ctx: BlockCtx, *, remat: bool = False):
+    """The layer stack: each aux metric averaged over the layers. With
+    `remat` each layer is checkpointed (``layers.remat_call``)."""
     auxes = []
     for l in range(cfg.n_layers):
-        x, aux = block_apply(cfg, layer_params(blocks, l), x, ctx)
+        x, aux = LY.remat_call(remat, block_apply, cfg,
+                               layer_params(blocks, l), x, ctx)
         auxes.append(aux)
     return x, {k: torch.mean(torch.stack([a[k] for a in auxes]))
                for k in auxes[0]}
@@ -224,7 +220,8 @@ def check_family(cfg) -> None:
 
 def forward(cfg, params, tokens: torch.Tensor, *,
             image_embeds: Optional[torch.Tensor] = None,
-            use_lamp: bool = False, attn_impl: str = "auto"):
+            use_lamp: bool = False, attn_impl: str = "auto",
+            remat: bool = False):
     """tokens: (B, S) -> (logits (B, P + S, vocab) float32, aux) on the
     tokens' device; for llava the stub frontend's `image_embeds` (B, P, d)
     are projected and prepended (P = 0 for the other families). `use_lamp`
@@ -232,23 +229,26 @@ def forward(cfg, params, tokens: torch.Tensor, *,
     site, dispatched in one group); `attn_impl` is
     ``layers.attention_sublayer``'s. aux holds the per-layer metrics
     averaged over the layers (`attn_lamp_rate`, and the MoE's
-    `router_lamp_rate`, `kept_frac`, `moe_aux_loss`)."""
+    `router_lamp_rate`, `kept_frac`, `moe_aux_loss`). `remat`
+    checkpoints each layer for the backward (``scan_blocks``)."""
     check_family(cfg)
     x, positions = _embed_inputs(cfg, params, tokens, image_embeds)
     ctx = _ctx(cfg, positions, use_lamp, attn_impl)
-    x, aux = scan_blocks(cfg, params["blocks"], x, ctx)
+    x, aux = scan_blocks(cfg, params["blocks"], x, ctx, remat=remat)
     return LY.unembed(cfg, params["embed"], _final_norm(cfg, params, x)), aux
 
 
 def loss_fn(cfg, params, batch: Dict[str, torch.Tensor], *,
-            use_lamp: bool = False, attn_impl: str = "auto"):
-    """Next-token cross entropy (the value; its gradient comes with the
-    training slice). batch: {tokens (B, S), [image_embeds]}. Returns (loss,
-    metrics): the MoE family adds 0.01 x its load-balancing loss."""
+            use_lamp: bool = False, attn_impl: str = "auto",
+            remat: bool = True):
+    """Next-token cross entropy, differentiable by autograd. batch: {tokens
+    (B, S), [image_embeds]}. Returns (loss, metrics): the MoE family adds
+    0.01 x its load-balancing loss. `remat` (on by default, as in the JAX
+    package) checkpoints each layer."""
     tokens = batch["tokens"]
     logits, aux = forward(cfg, params, tokens,
                           image_embeds=batch.get("image_embeds"),
-                          use_lamp=use_lamp, attn_impl=attn_impl)
+                          use_lamp=use_lamp, attn_impl=attn_impl, remat=remat)
     if cfg.family == "llava":
         logits = logits[:, batch["image_embeds"].shape[1]:]
     loss = next_token_nll(logits, tokens)

@@ -21,8 +21,10 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.core import tree as T
+
 from . import layers as LY
-from .transformer import layer_params, map_params, next_token_nll, resolve_device
+from .transformer import layer_params, next_token_nll, resolve_device
 
 
 def _norm_params(lead, d, names):
@@ -51,7 +53,7 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
               "enc_blocks": enc, "dec_blocks": dec,
               **_norm_params((), d, ("enc_lnf", "lnf"))}
     dt = LY.dtype_of(cfg)
-    return map_params(params, lambda t: t.to(device=device, dtype=dt))
+    return T.map(lambda t: t.to(device=device, dtype=dt), params)
 
 
 def encode(cfg, params, frames: torch.Tensor, *, use_lamp: bool = False,
@@ -99,33 +101,44 @@ def _decoder_layer(cfg, p_l, x, positions, site, attn_impl, kv):
     return x + LY.mlp_apply(cfg, p_l["mlp"], h), (k, v)
 
 
+def _decoder_body(cfg, p_l, x, positions, site, attn_impl, enc_out):
+    """One layer of `decode_full`, its cross K/V projected inside (the JAX
+    package's scan body, which remat recomputes whole)."""
+    x, _ = _decoder_layer(cfg, p_l, x, positions, site, attn_impl,
+                          _cross_kv(cfg, p_l["xattn"], enc_out))
+    return x
+
+
 def decode_full(cfg, params, tokens: torch.Tensor, enc_out: torch.Tensor, *,
-                use_lamp: bool = False, attn_impl: str = "auto"):
+                use_lamp: bool = False, attn_impl: str = "auto",
+                remat: bool = False):
     """The teacher-forced decoder over the whole token sequence: logits
-    (B, S, V)."""
+    (B, S, V). `remat` checkpoints each layer (``layers.remat_call``)."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = LY.embed(cfg, params["embed"], tokens.long(), positions)
     site = LY.kq_site(cfg, use_lamp)
     for l in range(cfg.n_layers):
-        p_l = layer_params(params["dec_blocks"], l)
-        x, _ = _decoder_layer(cfg, p_l, x, positions, site, attn_impl,
-                              _cross_kv(cfg, p_l["xattn"], enc_out))
+        x = LY.remat_call(remat, _decoder_body, cfg,
+                          layer_params(params["dec_blocks"], l), x, positions,
+                          site, attn_impl, enc_out)
     x = LY.layer_norm(x, params["lnf_w"], params["lnf_b"])
     return LY.unembed(cfg, params["embed"], x)
 
 
 def forward(cfg, params, tokens, *, frames=None, use_lamp: bool = False,
-            attn_impl: str = "auto", **_):
+            attn_impl: str = "auto", remat: bool = False, **_):
+    """(logits, {}); `remat` checkpoints the decoder's layers, as in the
+    JAX package (the encoder's are not)."""
     enc_out = encode(cfg, params, frames, use_lamp=use_lamp, attn_impl=attn_impl)
     return decode_full(cfg, params, tokens, enc_out, use_lamp=use_lamp,
-                       attn_impl=attn_impl), {}
+                       attn_impl=attn_impl, remat=remat), {}
 
 
-def loss_fn(cfg, params, batch, *, use_lamp: bool = False,
+def loss_fn(cfg, params, batch, *, use_lamp: bool = False, remat: bool = True,
             attn_impl: str = "auto", **_):
-    """Next-token cross entropy (the value). Returns (loss, metrics)."""
+    """Next-token cross entropy. Returns (loss, metrics)."""
     logits, aux = forward(cfg, params, batch["tokens"], frames=batch["frames"],
-                          use_lamp=use_lamp, attn_impl=attn_impl)
+                          use_lamp=use_lamp, attn_impl=attn_impl, remat=remat)
     loss = next_token_nll(logits, batch["tokens"])
     return loss, {"loss": loss, **aux}
 

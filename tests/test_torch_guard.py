@@ -37,7 +37,11 @@ obs = {"repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.tracing",
        "repro_torch.launch.quickstart", "repro_torch.models.api",
        "repro_torch.models.hymba", "repro_torch.models.rwkv",
        "repro_torch.models.whisper", "repro_torch.runtime.serve_loop",
-       "repro_torch.launch.serve_lamp"}
+       "repro_torch.launch.serve_lamp", "repro_torch.optim",
+       "repro_torch.optim.adamw", "repro_torch.optim.compression",
+       "repro_torch.checkpoint.manager", "repro_torch.distributed.straggler",
+       "repro_torch.data.tokenizer", "repro_torch.launch.steps",
+       "repro_torch.launch.train", "repro_torch.runtime.train_loop"}
 assert obs <= set(names), names
 for name in names:
     importlib.import_module(name)
