@@ -227,8 +227,11 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            directory, resumed to 40: every loss finite, the last 5 steps'
            mean below the first step's by TRAIN_LOSS_DROP, the resumed run
            exactly 10 steps, step 29's checkpoint restored bit for bit; ms
-           a step and tokens/s of TRAIN_TIMED_STEPS synchronized steps, and
-           max_memory_allocated; the learning gate: LEARN_STEPS steps on a
+           a step and tokens/s of TRAIN_TIMED_STEPS synchronized steps of
+           the step the loop runs (make_sharded_train_step on the one-rank
+           mesh, DTensor state), each beside a step of make_train_step on
+           whole tensors from the same state and batch (bit for bit the
+           same), and max_memory_allocated; the learning gate: LEARN_STEPS steps on a
            64-word Markov stream end below LEARN_LOSS_MAX, and the same
            run with the blocks' gradients dropped (the control) above it.
            (b) qwen3-moe-30b-a3b at its published widths, 2 of 48 layers,
@@ -238,6 +241,36 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            MOE_TRAIN_LOGIT_REL of the FP32 forward of the same weights,
            with the MoE output dropped (controls) beyond them, params
            finite in their dtypes
+  distributed
+           distribution over torch.distributed (plain PyTorch, no
+           kernel: every wrapper's launch count must stay still). (a) A
+           one-rank NCCL mesh of this process (launch.mesh.make_host_mesh):
+           3 steps of runtime.train_loop.train on gpt2-small at full width
+           and depth, 2 x 128 tokens, bit for bit 3 steps of
+           make_train_step on the same seed (losses, grad norms, params and
+           AdamW state); sp_decode_attention at glm4-9b's published
+           attention widths (32 heads on 2 KV heads, hd 128, a bfloat16
+           cache of 32,768 positions, 8 rows), LAMP off and on (relaxed,
+           mu 7, tau 0.05), card against CPU within DIST_SP_ATOL, the keys
+           selected counted on both, ms; moe_apply_ep with all 128 experts
+           against moe_apply (dropless) and quantized_psum of a
+           gpt2-small-sized tree within half a quantization step. (b)
+           DIST_RANKS processes sharing the card over gloo (NCCL refuses
+           two ranks on one device), a (1, 4) mesh: sp_decode_attention
+           with model 4 (8192 positions a rank) against (a) within
+           DIST_SP_SHARD_REL x sum_i p_i |v_i| / l, entry by entry, and
+           against the same 4 ranks on the CPU within DIST_SP_ATOL; two
+           controls in the same run fail that bound: each rank's slice at
+           the next rank's positions (a wrong pos offset), and the last
+           rank's slice dropped from the combine; moe_apply_ep at
+           qwen3-moe-30b-a3b's widths (128 experts, 32 a rank, top 8,
+           bfloat16, router FP32, 8 x 128 tokens) against moe_apply and
+           against the same 4 ranks on the CPU within MOE_REL_L2 /
+           MOE_MAX_ABS_OF_MAX; quantized_psum of a gpt2-small-sized tree a
+           rank, card bit for bit the CPU's. These run all-reduces (SUM,
+           MAX) of CUDA tensors, which gloo takes, staging them through the
+           host; an exception in any rank fails the phase. Times of (b)
+           are host wall times through gloo, not NVLink figures
 
 The loud rule holds for every engine run of every phase but the ladder
 exhaustion run: no recovery through the gather or FP32 rung (they run the
@@ -3198,9 +3231,12 @@ def train_loop_on_card(cfg, checks):
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core import tree as T
     from repro_torch.data.synthetic import DataConfig, SyntheticDataset
+    from repro_torch.distributed import sharding as SH
     from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import adamw
     from repro_torch.runtime.train_loop import TrainLoopConfig, train
+    mesh = make_host_mesh()
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                           global_batch=TRAIN_BATCH)
     with tempfile.TemporaryDirectory() as ckpt:
@@ -3209,17 +3245,16 @@ def train_loop_on_card(cfg, checks):
                                log_every=TRAIN_CKPT_EVERY, checkpoint_dir=ckpt)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        first = train(cfg, loop, data_cfg=data_cfg, device=DEVICE)
+        first = train(cfg, mesh, loop, data_cfg=data_cfg)
         first_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        second = train(cfg, dataclasses.replace(loop,
-                                                total_steps=TRAIN_RESUME_TO),
-                       data_cfg=data_cfg, device=DEVICE)
+        second = train(cfg, mesh, dataclasses.replace(
+            loop, total_steps=TRAIN_RESUME_TO), data_cfg=data_cfg)
         second_s = time.perf_counter() - t0
         max_mem = torch.cuda.max_memory_allocated()
         mgr = CheckpointManager(ckpt)
         kept = sorted(p for p in os.listdir(ckpt) if p.startswith("step_"))
-        saved = {"params": first["params"], "opt": first["opt"]}
+        saved = SH.gather({"params": first["params"], "opt": first["opt"]})
         back = mgr.restore(saved, step=TRAIN_STEPS - 1)
         checks["train_restore_bit_for_bit"] = all(
             a.dtype == b.dtype and torch.equal(a, b)
@@ -3232,28 +3267,51 @@ def train_loop_on_card(cfg, checks):
     checks["train_losses_finite"] = all(np.isfinite(losses))
     last5 = float(np.mean(losses[-5:]))
     checks["train_loss_falls"] = last5 <= losses[0] - TRAIN_LOSS_DROP
-    checks["train_opt_step"] = int(second["opt"].step) == TRAIN_RESUME_TO
-    # TRAIN_TIMED_STEPS more steps of the loop's step function, each timed
-    # to its end on the card
-    step = ST.make_train_step(cfg, adamw.AdamWConfig())
+    sp, so = second["params"], second["opt"]
+    params, opt = SH.gather(sp), SH.gather(so)
+    del second
+    checks["train_opt_step"] = int(opt.step) == TRAIN_RESUME_TO
+    # TRAIN_TIMED_STEPS more steps of the step the loop runs (DTensor state
+    # on the one-rank mesh), each beside a make_train_step step on whole
+    # tensors from the same state and batch; each timed to its end
+    opt_cfg = adamw.AdamWConfig()
+    sharded = ST.make_sharded_train_step(cfg, opt_cfg, mesh)
+    plain = ST.make_train_step(cfg, opt_cfg)
     data = SyntheticDataset(data_cfg)
-    params, opt = second["params"], second["opt"]
-    times = []
+    times = {"sharded": [], "plain": []}
+    same = True
+
+    def timed(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+        return out
     for i in range(TRAIN_TIMED_STEPS):
         batch = {"tokens": torch.from_numpy(
             data.batch_at(TRAIN_RESUME_TO + i)["tokens"]).to(DEVICE)}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, m = step(params, opt, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    ms = statistics.median(times) * 1e3
+        sp, so, m_sharded = timed("sharded", sharded, sp, so, batch)
+        params, opt, m_plain = timed("plain", plain, params, opt, batch)
+        same = same and all(torch.equal(m_sharded[k], m_plain[k])
+                            for k in m_plain)
+    same = same and all(torch.equal(a, b) for a, b in zip(
+        T.leaves(SH.gather({"p": sp, "o": so})),
+        T.leaves({"p": params, "o": opt})))
+    checks["train_sharded_step_bit_equal"] = same
+    ms = statistics.median(times["sharded"]) * 1e3
+    plain_ms = statistics.median(times["plain"]) * 1e3
     return {"losses": losses, "first_loss": losses[0], "last5_mean": last5,
             "drop": losses[0] - last5, "checkpoints_kept": kept,
             "first_run_s": first_s, "resumed_run_s": second_s,
             "loop_ms_per_step": 1e3 * (first_s + second_s) / TRAIN_RESUME_TO,
-            "ms_per_step": ms, "step_ms_all": [t * 1e3 for t in times],
+            "ms_per_step": ms,
+            "step_ms_all": [t * 1e3 for t in times["sharded"]],
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+            "make_train_step_ms": plain_ms,
+            "make_train_step_ms_all": [t * 1e3 for t in times["plain"]],
+            "sharded_minus_plain_ms": ms - plain_ms,
+            "sharded_bit_equal_plain": same,
             "max_memory_allocated": max_mem}
 
 
@@ -3414,7 +3472,8 @@ def phase_train():
     torch.cuda.empty_cache()
     loop = train_loop_on_card(cfg, checks)
     print(f"train: gpt2-small {TRAIN_BATCH} x {TRAIN_SEQ}, "
-          f"{loop['ms_per_step']:.1f} ms a step, "
+          f"{loop['ms_per_step']:.1f} ms a step on the one-rank mesh "
+          f"(make_train_step {loop['make_train_step_ms']:.1f} ms), "
           f"{loop['tokens_per_s']:.0f} tokens/s, max_memory_allocated "
           f"{loop['max_memory_allocated'] / 2**30:.2f} GiB on {smi}",
           flush=True)
@@ -3439,6 +3498,396 @@ def phase_train():
          seconds=time.perf_counter() - t0, checks=checks,
          ok=all(checks.values()))
     require(all(checks.values()), f"train phase failed its checks: "
+            f"{ {k: v for k, v in checks.items() if not v} }")
+
+
+# --------------------------------------------------------------- distributed
+
+# sp_decode_attention at glm4-9b's published attention widths (32 heads on
+# 2 KV heads, hd 128) over a bfloat16 cache of 32,768 positions, 8 rows;
+# lengths at the edges of 4 ranks' 8192-position slices, a full row and a
+# 1-key row
+DIST_SP = dict(B=8, H=32, Hkv=2, D=128, S=32768)
+DIST_SP_LENGTHS = [32768, 32767, 1, 8192, 8193, 20000, 24576, 12345]
+DIST_SP_MU, DIST_SP_TAU = 7, 0.05
+# card against CPU, the same code on as many ranks: FP32 products and sums
+# in other orders over up to 32,768 keys (q and p rounded to bfloat16
+# alike); the relaxed rule at mu 7 may flip a key whose logit the two
+# orders put on either side of a PS(7) rounding edge, which moves its row's
+# output by far less than a bfloat16 step
+DIST_SP_ATOL = 1e-4
+# 4 ranks against 1, entry by entry: each rank rounds p = exp(y - m) to the
+# cache's bfloat16 against its own slice's max m before P.V (as the JAX
+# package's p.astype(v.dtype) does), one rank against the whole row's, so
+# each weight rounds within 2^-9 of p_i either way: entry d of a row's
+# output moves at most 2^-8 sum_i p_i |v_id| / l, plus the FP32 sums'
+# other orders (2^-16 of the same)
+DIST_SP_SHARD_REL = 2.0 ** -8 + 2.0 ** -16
+DIST_RANKS = 4
+DIST_MOE_TOKENS = (8, 128)
+DIST_TRAIN_STEPS = 3
+DIST_SEED = 11
+
+
+def sp_inputs():
+    """q (FP32), the bfloat16 caches and the lengths, drawn on the card
+    from a seeded generator (the same in every process on the card)."""
+    g = torch.Generator(device=DEVICE).manual_seed(DIST_SEED)
+    B, H, Hkv, D, S = (DIST_SP[k] for k in ("B", "H", "Hkv", "D", "S"))
+    q = torch.randn((B, H, 1, D), generator=g, device=DEVICE)
+    k = torch.randn((B, Hkv, S, D), generator=g, device=DEVICE).to(torch.bfloat16)
+    v = torch.randn((B, Hkv, S, D), generator=g, device=DEVICE).to(torch.bfloat16)
+    length = torch.tensor(DIST_SP_LENGTHS, dtype=torch.int32, device=DEVICE)
+    return q, k, v, length
+
+
+def sp_plain(q, k, v, length, mu, tau, lamp):
+    """sp_decode_attention's arithmetic on one rank over whole rows: (keys
+    the relaxed rule selects (0 with lamp off), valid keys, the bound's
+    scale sum_i p_i |v_i| / l (B, H, 1, D), p unrounded)."""
+    from repro_torch.core.numerics import round_to_mantissa
+    B, H, _, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    qg = (q.float() * D ** -0.5).reshape(B, Hkv, H // Hkv, D)
+    y = torch.einsum("bhgd,bhkd->bhgk", qg.to(k.dtype).float(), k.float())
+    ok = torch.arange(S, device=q.device)[None, None, None, :] < \
+        length[:, None, None, None]
+    neg = torch.tensor(-1e30, device=q.device)
+    sel = torch.zeros_like(y, dtype=torch.bool)
+    if lamp:
+        y_low = round_to_mantissa(y, mu)
+        s = torch.where(ok, y_low + torch.log(torch.abs(y_low)), neg)
+        log_tau = torch.log(torch.tensor(max(tau, 1e-30), device=q.device))
+        sel = ok & (s > log_tau + torch.amax(s, dim=-1, keepdim=True))
+        y = torch.where(sel, y, y_low)
+    p = torch.softmax(torch.where(ok, y, neg), dim=-1)
+    scale = torch.einsum("bhgk,bhkd->bhgd", p, torch.abs(v.float()))
+    return (int(sel.sum()), int(ok.expand_as(y).sum()),
+            scale.reshape(B, H, 1, D))
+
+
+def moe_layer_inputs(cfg):
+    """One qwen3-moe layer's router (FP32), experts (bfloat16) and an
+    8 x 128 token batch, drawn on the card from a seeded generator."""
+    g = torch.Generator(device=DEVICE).manual_seed(DIST_SEED + 1)
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def normal(shape, scale, dtype):
+        return (torch.randn(shape, generator=g, device=DEVICE) * scale).to(dtype)
+    p = {"router": normal((d, E), d ** -0.5, torch.float32),
+         "we_in": normal((E, d, 2 * ff), d ** -0.5, torch.bfloat16),
+         "we_out": normal((E, ff, d), ff ** -0.5, torch.bfloat16)}
+    x = normal(DIST_MOE_TOKENS + (d,), 1.0, torch.bfloat16)
+    return p, x
+
+
+def grad_tree(seed):
+    """A gradient-sized tree: gpt2-small's parameter shapes, FP32 normal
+    values from a seeded generator on the card."""
+    from repro_torch.core import tree as T
+    from repro_torch.models import api
+    with torch.device("meta"):
+        like = api.init_params(gpt2_small(), 0, device="meta")
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return T.map(lambda t: torch.randn(t.shape, generator=g, device=DEVICE)
+                 * 1e-3, like)
+
+
+def moe_gates(y, ref):
+    rel = float(torch.linalg.norm(y.float() - ref.float())
+                / torch.linalg.norm(ref.float()))
+    mx = float(torch.max(torch.abs(y.float() - ref.float()))
+               / torch.max(torch.abs(ref.float())))
+    return rel, mx, rel <= MOE_REL_L2 and mx <= MOE_MAX_ABS_OF_MAX
+
+
+def dist_one_rank(checks):
+    """(a): a one-rank NCCL mesh of this process on the card."""
+    from repro_torch.core import tree as T
+    from repro_torch.data.synthetic import DataConfig, SyntheticDataset
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.models.moe import moe_apply, moe_apply_ep
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import TrainLoopConfig, train
+    mesh = make_host_mesh()
+    out = {"mesh": dict(SH.axis_sizes(mesh)),
+           "backend": torch.distributed.get_backend()}
+    # train on the host mesh against make_train_step's steps, same seed
+    cfg = gpt2_small()
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CHECK_SEQ,
+                          global_batch=TRAIN_CHECK_BATCH)
+    data = SyntheticDataset(data_cfg)
+    step = ST.make_train_step(cfg, adamw.AdamWConfig())
+    params = api.init_params(cfg, 0, device=DEVICE)
+    opt = adamw.init_state(params)
+    ref = []
+    for i in range(DIST_TRAIN_STEPS):
+        params, opt, m = step(params, opt, {"tokens": torch.from_numpy(
+            data.batch_at(i)["tokens"]).to(DEVICE)})
+        ref.append([float(m["loss"]), float(m["grad_norm"])])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ck:
+        res = train(cfg, mesh, TrainLoopConfig(
+            total_steps=DIST_TRAIN_STEPS, checkpoint_every=100,
+            log_every=100, checkpoint_dir=ck), data_cfg=data_cfg)
+    train_s = time.perf_counter() - t0
+    got = [[m["loss"], m["grad_norm"]] for m in res["metrics"]]
+    full = SH.gather({"p": res["params"], "o": res["opt"]})
+    checks["dist_train_metrics_bit_equal"] = got == ref
+    checks["dist_train_state_bit_equal"] = all(
+        torch.equal(a, b) for a, b in zip(T.leaves(full),
+                                          T.leaves({"p": params, "o": opt})))
+    out["train"] = {"config": cfg.name, "batch": TRAIN_CHECK_BATCH,
+                    "seq": TRAIN_CHECK_SEQ, "mesh_run": got, "no_mesh": ref,
+                    "loop_s": train_s}
+    del params, opt, full, res
+    # sp_decode_attention, card against CPU
+    q, k, v, length = sp_inputs()
+    sp = {}
+    for lamp in (False, True):
+        kw = dict(mu=DIST_SP_MU if lamp else 23, tau=DIST_SP_TAU, lamp=lamp)
+        card = C.sp_decode_attention(mesh, q, k, v, length, **kw)
+        cpu = C.sp_decode_attention(mesh, q.cpu(), k.cpu(), v.cpu(),
+                                    length.cpu(), **kw)
+        err = float(torch.max(torch.abs(card.cpu() - cpu)))
+        ms = time_call(lambda: C.sp_decode_attention(mesh, q, k, v, length,
+                                                     **kw))
+        row = {"max_abs_err": err, "max_abs": float(torch.max(torch.abs(cpu))),
+               "ms": ms, "finite": bool(torch.isfinite(card).all())}
+        sel, row["valid"], scale = sp_plain(q, k, v, length, DIST_SP_MU,
+                                            DIST_SP_TAU, lamp)
+        if lamp:
+            row["selected_card"] = sel
+            row["selected_cpu"] = sp_plain(
+                q.cpu(), k.cpu(), v.cpu(), length.cpu(), DIST_SP_MU,
+                DIST_SP_TAU, lamp)[0]
+        sp["lamp" if lamp else "exact"] = row
+        out.setdefault("sp_out", {})["lamp" if lamp else "exact"] = card.cpu()
+        out.setdefault("sp_scale", {})["lamp" if lamp else "exact"] = \
+            scale.cpu()
+        del scale
+        checks[f"dist_sp_card_vs_cpu_{'lamp' if lamp else 'exact'}"] = \
+            row["finite"] and err <= DIST_SP_ATOL
+    checks["dist_sp_lamp_moves"] = float(torch.max(torch.abs(
+        out["sp_out"]["lamp"] - out["sp_out"]["exact"]))) > 0
+    out["sp"] = sp
+    del q, k, v
+    # moe_apply_ep (all 128 experts on the one rank) and quantized_psum
+    mcfg = moe_2_layers()
+    p, x = moe_layer_inputs(mcfg)
+    site = mcfg.lamp.router
+    y_ep, met = moe_apply_ep(mcfg, p, x, lamp_site=site, mesh=mesh)
+    y_ref, _ = moe_apply(mcfg, p, x, lamp_site=site, dropless=True)
+    rel, mx, ok = moe_gates(y_ep, y_ref)
+    kept = float(met["kept_frac"])
+    checks["dist_moe_ep_one_rank"] = ok and kept == 1.0
+    out["moe"] = {"kept_frac": kept, "rel_l2_vs_moe_apply": rel,
+                  "max_abs_of_max_vs_moe_apply": mx}
+    del p, x, y_ep, y_ref
+    tree = grad_tree(DIST_SEED + 2)
+    got = C.quantized_psum(mesh, tree)
+    # half a quantization step of the largest leaf's scale, plus the
+    # roundings of g / scale and of q x scale (one FP32 step of max|g|)
+    top = max(float(torch.max(torch.abs(t))) for t in T.leaves(tree))
+    bound = top / 254 + top * 2.0 ** -23
+    worst = max(float(torch.max(torch.abs(a - b))) for a, b in
+                zip(T.leaves(got), T.leaves(tree)))
+    checks["dist_psum_one_rank"] = worst <= bound
+    out["psum"] = {"max_abs_err": worst, "half_step": bound,
+                   "n_values": sum(t.numel() for t in T.leaves(tree))}
+    return out
+
+
+def _host_s(fn):
+    """Wall seconds of fn() on the host clock, the card synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def dist_rank(rank, tmp):
+    """(b): one of DIST_RANKS processes sharing the card over gloo."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.core import tree as T
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.moe import moe_apply, moe_apply_ep
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), DIST_RANKS),
+        rank=rank, world_size=DIST_RANKS,
+        timeout=datetime.timedelta(seconds=240))
+    res = {"rank": rank, "host_s": {}}
+    card = init_device_mesh("cuda", (1, DIST_RANKS),
+                            mesh_dim_names=("data", "model"))
+    cpu = init_device_mesh("cpu", (1, DIST_RANKS),
+                           mesh_dim_names=("data", "model"))
+
+    # sp_decode_attention, this rank's 8192 positions
+    q, k, v, length = sp_inputs()
+    S_l = k.shape[2] // DIST_RANKS
+
+    def cols(r):
+        return slice(r * S_l, (r + 1) * S_l)
+    k_l = k[:, :, cols(rank)].contiguous()
+    v_l = v[:, :, cols(rank)].contiguous()
+    for lamp in (False, True):
+        kw = dict(mu=DIST_SP_MU if lamp else 23, tau=DIST_SP_TAU, lamp=lamp)
+        tag = "lamp" if lamp else "exact"
+        o, s = _host_s(lambda: C.sp_decode_attention(card, q, k_l, v_l,
+                                                     length, **kw))
+        res[f"sp_card_{tag}"] = o.cpu()
+        res["host_s"][f"sp_{tag}"] = s
+        res[f"sp_cpu_{tag}"] = C.sp_decode_attention(
+            cpu, q.cpu(), k_l.cpu(), v_l.cpu(), length.cpu(), **kw)
+    # the controls: each rank's slice at the next rank's positions (a
+    # wrong pos offset), and the last rank's slice dropped from the
+    # combine (its rows' lengths 0)
+    nxt = cols((rank + 1) % DIST_RANKS)
+    res["sp_control_pos_offset"] = C.sp_decode_attention(
+        card, q, k[:, :, nxt].contiguous(), v[:, :, nxt].contiguous(),
+        length).cpu()
+    res["sp_control_slice_dropped"] = C.sp_decode_attention(
+        card, q, k_l, v_l,
+        length if rank < DIST_RANKS - 1 else torch.zeros_like(length)).cpu()
+    del q, k, v, k_l, v_l
+
+    # moe_apply_ep, 32 of the 128 experts a rank
+    mcfg = moe_2_layers()
+    p, x = moe_layer_inputs(mcfg)
+    site = mcfg.lamp.router
+    if rank == 0:
+        res["moe_ref"] = moe_apply(mcfg, p, x, lamp_site=site,
+                                   dropless=True)[0].cpu()
+    specs = SH.param_specs({"moe": p}, card)["moe"]
+    placed = SH.distribute(p, specs, card)
+    del p
+    torch.cuda.empty_cache()
+    (y, met), s = _host_s(lambda: moe_apply_ep(mcfg, placed, x,
+                                               lamp_site=site, mesh=card))
+    res["moe_card"] = y.cpu()
+    res["moe_kept"] = float(met["kept_frac"])
+    res["host_s"]["moe"] = s
+    local = {k: (DTensor.from_local(
+        t.to_local().cpu(), cpu, [Replicate(), Shard(0)], run_check=False,
+        shape=t.shape, stride=t.stride()) if k != "router"
+        else t.full_tensor().cpu()) for k, t in placed.items()}
+    res["moe_cpu"] = moe_apply_ep(mcfg, local, x.cpu(), lamp_site=site,
+                                  mesh=cpu)[0]
+    del placed, local, x, y
+
+    # quantized_psum of a gradient-sized tree a rank
+    dmesh = init_device_mesh("cuda", (DIST_RANKS,), mesh_dim_names=("data",))
+    dcpu = init_device_mesh("cpu", (DIST_RANKS,), mesh_dim_names=("data",))
+    tree = grad_tree(DIST_SEED + 3 + rank)
+    got, s = _host_s(lambda: C.quantized_psum(dmesh, tree))
+    res["host_s"]["psum"] = s
+    want = C.quantized_psum(dcpu, T.map(lambda t: t.cpu(), tree))
+    res["psum_bit_equal"] = all(torch.equal(a.cpu(), b) for a, b in
+                                zip(T.leaves(got), T.leaves(want)))
+    res["psum_values"] = sum(t.numel() for t in T.leaves(tree))
+
+    res["launches"] = kernel_launches()
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_distributed():
+    """Distribution over torch.distributed (module docstring)."""
+    import gc
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = kernel_launches()
+    checks = {}
+    one = dist_one_rank(checks)
+    sp_one, sp_scale = one.pop("sp_out"), one.pop("sp_scale")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    # an exception in any rank ends the spawn, and so the phase
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(dist_rank, args=(tmp,), nprocs=DIST_RANKS)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(DIST_RANKS)]
+    spawn_s = time.perf_counter() - t1
+    r0 = ranks[0]
+    four = {"mesh": {"data": 1, "model": DIST_RANKS},
+            "collectives": "all_reduce SUM / MAX of FP32, bfloat16 and int32 "
+                           "CUDA tensors over gloo (host-staged)",
+            "host_s_through_gloo": [r["host_s"] for r in ranks],
+            "spawn_s": spawn_s}
+
+    def of_bound(out, tag):
+        """The largest |out - one rank's| over its entry's bound."""
+        bound = DIST_SP_SHARD_REL * sp_scale[tag]
+        return float(torch.max(torch.abs(out - sp_one[tag]) / bound))
+    for tag in ("exact", "lamp"):
+        vs_one = float(torch.max(torch.abs(r0[f"sp_card_{tag}"]
+                                           - sp_one[tag])))
+        vs_cpu = float(torch.max(torch.abs(r0[f"sp_card_{tag}"]
+                                           - r0[f"sp_cpu_{tag}"])))
+        ratio = of_bound(r0[f"sp_card_{tag}"], tag)
+        four[f"sp_{tag}"] = {"max_abs_err_vs_one_rank": vs_one,
+                             "of_bound_vs_one_rank": ratio,
+                             "max_abs_err_vs_cpu_4_ranks": vs_cpu}
+        checks[f"dist_sp_4_ranks_{tag}"] = vs_cpu <= DIST_SP_ATOL and \
+            ratio <= 1.0
+    controls = {c: of_bound(r0[f"sp_control_{c}"], "exact")
+                for c in ("pos_offset", "slice_dropped")}
+    four["sp_controls_of_bound"] = controls
+    checks["dist_sp_controls_fail_the_bound"] = all(
+        v > 1.0 for v in controls.values())
+    checks["dist_sp_ranks_agree"] = all(
+        torch.equal(r[f"sp_card_{tag}"], r0[f"sp_card_{tag}"])
+        for r in ranks for tag in ("exact", "lamp"))
+    rel_ref, mx_ref, ok_ref = moe_gates(r0["moe_card"], r0["moe_ref"])
+    rel_cpu, mx_cpu, ok_cpu = moe_gates(r0["moe_card"], r0["moe_cpu"])
+    four["moe"] = {"kept_frac": r0["moe_kept"],
+                   "rel_l2_vs_moe_apply": rel_ref,
+                   "max_abs_of_max_vs_moe_apply": mx_ref,
+                   "rel_l2_vs_cpu_4_ranks": rel_cpu,
+                   "max_abs_of_max_vs_cpu_4_ranks": mx_cpu}
+    checks["dist_moe_ep_4_ranks_vs_moe_apply"] = \
+        ok_ref and r0["moe_kept"] == 1.0
+    checks["dist_moe_ep_4_ranks_vs_cpu"] = ok_cpu
+    four["psum"] = {"values_a_rank": r0["psum_values"],
+                    "bit_equal_card_cpu": [r["psum_bit_equal"]
+                                           for r in ranks]}
+    checks["dist_psum_4_ranks_card_vs_cpu"] = all(
+        r["psum_bit_equal"] for r in ranks)
+    after = kernel_launches()
+    checks["dist_no_kernel_launch"] = after == before and all(
+        r["launches"] == before or all(v == 0 for v in r["launches"].values())
+        for r in ranks)
+    worst = max(four[f"sp_{t}"]["of_bound_vs_one_rank"]
+                for t in ("exact", "lamp"))
+    print(f"distributed: sp 4 ranks against 1 at {worst:.3g} of the bound, "
+          f"its controls at {min(controls.values()):.3g} or more; on {smi}",
+          flush=True)
+    emit("distributed", card=smi, one_rank=one, four_ranks=four,
+         gates=dict(sp_atol=DIST_SP_ATOL, sp_shard_rel=DIST_SP_SHARD_REL,
+                    moe_rel_l2=MOE_REL_L2,
+                    moe_max_abs_of_max=MOE_MAX_ABS_OF_MAX),
+         launches_before=before, launches_after=after,
+         seconds=time.perf_counter() - t0, checks=checks,
+         ok=all(checks.values()))
+    require(all(checks.values()), f"distributed phase failed its checks: "
             f"{ {k: v for k, v in checks.items() if not v} }")
 
 
@@ -3473,6 +3922,7 @@ def main() -> int:
     phase_paper()
     phase_static()
     phase_train()
+    phase_distributed()
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows + micro_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,2 @@
-"""Checkpoints (port of ``repro/checkpoint``): the manager; the elastic
-re-placement onto a mesh comes with the port's torch.distributed slice."""
+"""Checkpoints (port of ``repro/checkpoint``): the manager, and the
+elastic re-placement of a checkpoint onto a mesh of another size."""

@@ -24,8 +24,13 @@ Guarantees:
     t, so a leaf updated in place after save() would otherwise be written
     with its later values
   * placement  -- restore() only needs shapes to match; it casts to the
-    target's dtype and puts each leaf on `device` (the port's stand-in for
-    the JAX package's shardings)
+    target's dtype and puts each leaf on `device`, or, given a mesh and a
+    spec per leaf (``distributed.sharding``), places it as a DTensor there
+  * sharded    -- save() gathers each DTensor leaf to the whole array (a
+    collective: every rank saves), so the layout is the JAX package's
+    whatever the mesh; under a process group only rank 0 writes, and
+    wait() ends with a barrier, so no rank reads a checkpoint before it
+    is on disk
   * GC         -- the keep_last newest checkpoints are retained
 """
 
@@ -41,18 +46,30 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import tree as T
+from repro_torch.distributed.sharding import distribute, gather
 
 
 def _flatten(tree) -> List[Tuple[str, Any]]:
     return [("/".join(path), leaf) for path, leaf in T.flatten_with_path(tree)]
 
 
+def _distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or a
+    process with none."""
+    return not _distributed() or dist.get_rank() == 0
+
+
 def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     """(a numpy copy of `t`, its true dtype's name); a bfloat16 tensor
-    comes back as its uint16 bits."""
-    t = t.detach()
+    comes back as its uint16 bits, a DTensor whole."""
+    t = gather(t).detach()
     bf16 = t.dtype == torch.bfloat16
     a = (t.view(torch.int16) if bf16 else t).cpu().numpy()
     if t.device.type == "cpu":          # .cpu() copied nothing
@@ -72,6 +89,10 @@ class CheckpointManager:
     def save(self, step: int, tree, *, blocking: bool = False) -> None:
         """Copy to host memory now; write to disk in the background."""
         self.wait()
+        if not _writer():
+            for _, leaf in _flatten(tree):     # the gathers are collectives
+                gather(leaf)
+            return
         host, true_dtypes = [], {}
         for k, leaf in _flatten(tree):
             a, dt = _to_host(leaf)
@@ -114,6 +135,8 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _distributed():
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError(f"async checkpoint save failed: {err!r}")
@@ -137,11 +160,14 @@ class CheckpointManager:
             name = steps[-1].name
         return int(name.split("_")[1])
 
-    def restore(self, tree_like, step: Optional[int] = None, *, device=None):
+    def restore(self, tree_like, step: Optional[int] = None, *, device=None,
+                mesh=None, specs=None):
         """Restore into the structure of `tree_like`, whose leaves give each
         array's shape and dtype (tensors, on any device, ``meta`` included).
         Each leaf goes to `device`, or to its like's device when `device` is
-        None."""
+        None; with `mesh` (a DeviceMesh) and `specs` (a spec per leaf), it
+        is placed there as a DTensor (every rank reads the whole array and
+        keeps its shard)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -160,6 +186,12 @@ class CheckpointManager:
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            dev = like.device if device is None else torch.device(device)
+            if mesh is not None:
+                dev = torch.device(mesh.device_type)
+            else:
+                dev = like.device if device is None else torch.device(device)
             leaves.append(t.to(device=dev, dtype=like.dtype))
-        return T.unflatten(tree_like, leaves)
+        out = T.unflatten(tree_like, leaves)
+        if mesh is not None:
+            out = distribute(out, specs, mesh)
+        return out

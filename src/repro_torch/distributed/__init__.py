@@ -1,3 +1,5 @@
-"""Distribution (port of ``repro/distributed``): so far only the straggler
-monitor that the train loop uses; sharding, collectives and the pipeline
-come with the port's ``torch.distributed`` slice."""
+"""Distribution (port of ``repro/distributed``) over ``torch.distributed``:
+the sharding rules and the ambient mesh (`sharding`), the SPMD collectives
+(`collectives`: sequence-parallel decode attention, the quantized
+all-reduce), the GPipe pipeline (`pipeline`) and the straggler monitor
+that the train loop uses (`straggler`)."""

@@ -8,8 +8,7 @@ policy layer (runtime/train_loop.py) reacts:
     stragglers trigger a checkpoint so a scheduler can replace the host
   * missed heartbeat (host stops stepping)      -> after `grace` seconds the
     survivors restart from the last checkpoint on a shrunken mesh
-    (the JAX package's checkpoint/elastic.py re-shards; the port's waits for
-    its torch.distributed slice)
+    (checkpoint/elastic.py re-places the checkpoint on it)
 
 Host-side logic only, free of any framework, so it is unit-testable and
 portable to any launcher.

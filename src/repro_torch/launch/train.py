@@ -2,15 +2,19 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \
         --batch 8 --seq 1024 --steps 40 [--device cuda|cpu]
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch ... \
+        [--production-mesh [--multi-pod]]
 
-Trains `--arch` (with `--reduced`, the family-preserving smoke config) on
-one device, CUDA unless `--device cpu`, through ``runtime.train_loop``:
-synthetic Markov data, AdamW, a checkpoint every `--checkpoint-every`
-steps into `--checkpoint-dir`, resuming from its latest checkpoint. The
-whisper and llava families get the JAX launcher's stub modality inputs,
-``normal(PRNGKey(step), ...) * 0.1`` (``core.prng.normal``, JAX's bits).
-The JAX launcher's `--production-mesh` / `--multi-pod` wait for the port's
-``torch.distributed`` slice.
+Trains `--arch` (with `--reduced`, the family-preserving smoke config)
+through ``runtime.train_loop`` on a mesh: the host mesh (``launch.mesh.
+make_host_mesh``: every rank of a torchrun world on `data`, or this
+process alone), or with `--production-mesh` the production mesh, which
+needs a torchrun world of its size (256 ranks; 512 with `--multi-pod`).
+CUDA (NCCL) unless `--device cpu` (gloo). Synthetic Markov data, AdamW, a
+checkpoint every `--checkpoint-every` steps into `--checkpoint-dir`,
+resuming from its latest checkpoint. The whisper and llava families get
+the JAX launcher's stub modality inputs, ``normal(PRNGKey(step), ...) *
+0.1`` (``core.prng.normal``, JAX's bits).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import sys
 from repro_torch.configs import get_config, list_archs, reduced as reduce_cfg
 from repro_torch.core import prng
 from repro_torch.data.synthetic import DataConfig
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models.transformer import resolve_device
 from repro_torch.optim import adamw
 from repro_torch.runtime.train_loop import TrainLoopConfig, train
@@ -52,6 +57,8 @@ def main(argv=None) -> int:
     ap.add_argument("--checkpoint-dir", default="repro_ckpt")
     ap.add_argument("--checkpoint-every", type=int, default=25)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -59,15 +66,16 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
+    mesh = (make_production_mesh(multi_pod=args.multi_pod, device=device)
+            if args.production_mesh else make_host_mesh(device=device))
     loop = TrainLoopConfig(total_steps=args.steps,
                            checkpoint_every=args.checkpoint_every,
                            checkpoint_dir=args.checkpoint_dir,
                            num_microbatches=args.microbatches)
     data = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                       global_batch=args.batch)
-    out = train(cfg, loop, adamw.AdamWConfig(lr=args.lr), data_cfg=data,
-                extra_batch=stub_inputs(cfg, args.batch, device),
-                device=device)
+    out = train(cfg, mesh, loop, adamw.AdamWConfig(lr=args.lr), data_cfg=data,
+                extra_batch=stub_inputs(cfg, args.batch, device))
     losses = [m["loss"] for m in out["metrics"]]
     if losses:
         print(f"[train] first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")

@@ -49,10 +49,13 @@ def loss_fn(cfg, params, batch: Dict[str, Any], **kw):
     if cfg.family == "rwkv6":
         kw.pop("use_lamp", None)
         kw.pop("attn_impl", None)
+        kw.pop("moe_groups", None)
         return rwkv.loss_fn(cfg, params, batch, **kw)
     if cfg.family == "hymba":
+        kw.pop("moe_groups", None)
         return hymba.loss_fn(cfg, params, batch, **kw)
     if cfg.family == "whisper":
+        kw.pop("moe_groups", None)
         return whisper.loss_fn(cfg, params, batch, **kw)
     raise _unknown(cfg)
 

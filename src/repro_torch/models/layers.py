@@ -18,6 +18,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import attention as A
 from repro_torch.core import prng
 from repro_torch.core.policy import LampSite
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import paged_attention as PA
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -241,10 +243,20 @@ def attention_sublayer(cfg, p, x: torch.Tensor, *, positions: torch.Tensor,
                          attn_impl=attn_impl, random_control=True)
 
 
+def _write_new(cache, new, slot):
+    """cache (B, S_l, Hkv, hd) in place: row b's new K or V (B, Hkv, hd) at
+    local position slot[b]; a slot outside [0, S_l) writes nothing."""
+    S_l = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    slot_c = torch.clamp(slot.long(), 0, S_l - 1)
+    keep = ((slot >= 0) & (slot < S_l))[:, None, None]
+    cache[rows, slot_c] = torch.where(keep, new.to(cache.dtype),
+                                      cache[rows, slot_c])
+
+
 def attention_decode_sublayer(cfg, p, x: torch.Tensor, *, cache_k, cache_v,
                               length, lamp_site: LampSite, kv_cross=None):
-    """Single-token decode against a dense cache (one layer; the
-    single-device branch of the JAX sublayer).
+    """Single-token decode against a dense cache (one layer).
 
     x: (B, 1, d); cache_k / cache_v: (B, S, Hkv, hd), written in place (the
     JAX package returns updated copies): the new token's K/V land at
@@ -253,18 +265,47 @@ def attention_decode_sublayer(cfg, p, x: torch.Tensor, *, cache_k, cache_v,
     order) at the effective length length + 1, over `cfg.window` keys.
     `kv_cross`: (k, v) (B, Te, Hkv, hd) of the encoder; then nothing is
     written and all Te keys are read. Returns (out (B, 1, d), cache_k,
-    cache_v, recompute rate)."""
+    cache_v, recompute rate).
+
+    Under an ambient mesh (``distributed.sharding.set_mesh``) the caches
+    are DTensors laid out by ``sharding.cache_specs`` and x, length this
+    rank's batch rows. When the mesh's `model` axis (> 1) divides S, the
+    caches' sequence is sharded over it: only the rank whose slice holds
+    position length[b] writes row b's K/V, attention is the
+    sequence-parallel ``collectives.sp_decode_attention`` (the relaxed rule
+    at the site's mu and tau when LAMP is on) and the rate is 0 (not
+    tracked on that path, as in the JAX package). Otherwise the rank's
+    local caches take the single-device path. The caches returned are
+    then the rank's local shards (written in place).
+    """
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k, v = _project_qkv(cfg, p, x, length[:, None])
+    mesh = SH.current_mesh()
     if kv_cross is None:
-        S = cache_k.shape[1]
-        rows = torch.arange(B, device=x.device)
-        slot = torch.clamp(length.long(), max=S - 1)
-        keep = (length < S)[:, None, None]
-        for cache, new in ((cache_k, k), (cache_v, v)):
-            cache[rows, slot] = torch.where(keep, new[:, 0].to(cache.dtype),
-                                            cache[rows, slot])
+        if mesh is not None:
+            S = cache_k.shape[1]
+            cache_k, cache_v = SH.to_local(cache_k), SH.to_local(cache_v)
+            n_model = SH.axis_size(mesh, "model")
+            if n_model > 1 and S % n_model == 0:
+                S_l = cache_k.shape[1]
+                if S_l * n_model != S:
+                    raise ValueError("under a mesh the caches must be laid "
+                                     "out by sharding.cache_specs")
+                first = SH.axis_index(mesh, "model") * S_l
+                _write_new(cache_k, k[:, 0], length - first)
+                _write_new(cache_v, v[:, 0], length - first)
+                out = C.sp_decode_attention(
+                    mesh, q.transpose(1, 2), cache_k.movedim(2, 1),
+                    cache_v.movedim(2, 1), length + 1,
+                    mu=lamp_site.mu if lamp_site.enabled else 23,
+                    tau=lamp_site.tau, lamp=lamp_site.enabled,
+                    window=cfg.window)
+                out = out.transpose(1, 2).reshape(B, 1, H * hd).to(x.dtype)
+                return out @ p["wo"], cache_k, cache_v, \
+                    torch.zeros((), dtype=torch.float32, device=x.device)
+        _write_new(cache_k, k[:, 0], length)
+        _write_new(cache_v, v[:, 0], length)
         use_k, use_v = cache_k, cache_v
         eff = length + 1
     else:

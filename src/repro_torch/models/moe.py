@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN with top-k routing and sort-based capacity dispatch
-(port of ``repro/models/moe.py:30-162``, the single-device path).
+(port of ``repro/models/moe.py``).
 
 The router softmax is a LAMP site: the router logits are a matmul feeding a
 softmax, and the selection rule flags the rows whose low-precision logits
@@ -16,6 +16,11 @@ Capacity depends on the whole bucket: tokens are flattened B-major and the
 stable rank gives earlier rows and earlier window slots the capacity first,
 padding included, so a caller that wants the JAX package's routing passes
 exactly its bucket.
+
+`moe_dispatch` picks the implementation as the JAX package's does: the
+expert-parallel `moe_apply_ep` under an ambient mesh (``distributed.
+sharding.set_mesh``) whose `model` axis (> 1) divides the experts, else
+`moe_apply`. Every MoE call site of the models goes through it.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import torch.nn.functional as F
 from repro_torch.core import lamp as LC
 from repro_torch.core.mixed_matmul import dot_ps
 from repro_torch.core.policy import LampSite
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as SH
 
 
 def moe_params(cfg, gen: torch.Generator, lead=()) -> Dict[str, torch.Tensor]:
@@ -120,25 +127,37 @@ def _dispatch_group(cfg, p, xg, eg, pg, cap: int):
     # (a boolean index would wait on the device for its count)
     buf = torch.zeros((E, cap + 1, d), dtype=xg.dtype, device=dev)
     buf[flat_e, torch.where(keep, pos, cap)] = xg[tok_idx]
-    h = torch.bmm(buf[:, :cap], p["we_in"])
+    out_buf = _experts(cfg, buf[:, :cap], p["we_in"], p["we_out"])
+    y_tok = out_buf[flat_e, torch.clamp(pos, max=cap - 1)] * \
+        keep[:, None].to(out_buf.dtype)
+    return _combine(y_tok, pg, Ng, k), torch.mean(keep.float())
+
+
+def _experts(cfg, buf, w_in, w_out):
+    """The experts' FFN on their buffers: buf (E, C, d) -> (E, C, d)."""
+    h = torch.bmm(buf, w_in)
     if cfg.act in ("swiglu", "geglu"):
-        ff = p["we_out"].shape[1]
+        ff = w_out.shape[1]
         g, u = h[..., :ff].float(), h[..., ff:].float()
         a = F.silu(g) if cfg.act == "swiglu" else F.gelu(g, approximate="tanh")
         h = (a * u).to(h.dtype)
     else:
         # tanh GELU whatever cfg.act names, as the JAX package's expert FFN
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-    out_buf = torch.bmm(h, p["we_out"])
-    y_tok = out_buf[flat_e, torch.clamp(pos, max=cap - 1)] * \
-        keep[:, None].to(out_buf.dtype)
-    contrib = (y_tok * pg.reshape(-1)[:, None].to(y_tok.dtype)).reshape(Ng, k, d)
-    # the k contributions of a token added in order, each sum rounded to the
-    # model's dtype, as the JAX package's scatter-add does them
-    yg = torch.zeros((Ng, d), dtype=y_tok.dtype, device=dev)
+    return torch.bmm(h, w_out)
+
+
+def _combine(y_tok, gates, n_tok: int, k: int):
+    """Each token's k expert results (n_tok * k, d), token-major, weighted
+    by its gates (n_tok, k) and added in order, each sum rounded to the
+    model's dtype, as the JAX package's scatter-add does them."""
+    d = y_tok.shape[-1]
+    contrib = (y_tok * gates.reshape(-1)[:, None].to(y_tok.dtype)).reshape(
+        n_tok, k, d)
+    y = torch.zeros((n_tok, d), dtype=y_tok.dtype, device=y_tok.device)
     for j in range(k):
-        yg = yg + contrib[:, j]
-    return yg, torch.mean(keep.float())
+        y = y + contrib[:, j]
+    return y
 
 
 def moe_apply(cfg, p, x: torch.Tensor, *, lamp_site: LampSite,
@@ -173,3 +192,95 @@ def moe_apply(cfg, p, x: torch.Tensor, *, lamp_site: LampSite,
                "moe_aux_loss": E * torch.sum(me * pe)}
     return y.reshape(B, T, d).to(x.dtype), metrics
 
+
+def moe_dispatch(cfg, p, x: torch.Tensor, *, lamp_site: LampSite,
+                 num_groups: int = 1, dropless: bool = False):
+    """The expert-parallel path (`moe_apply_ep`, which ignores `num_groups`
+    and `dropless`, as the JAX package's does) when the ambient mesh has a
+    `model` axis > 1 that divides the experts, else `moe_apply`. Under a
+    mesh, x is the rank's batch shard (``sharding.batch_rows``: a batch
+    the batch axes do not divide is refused before it gets here)."""
+    mesh = SH.current_mesh()
+    n_model = SH.axis_size(mesh, "model") if mesh is not None else 1
+    if n_model > 1 and cfg.n_experts % n_model == 0:
+        return moe_apply_ep(cfg, p, x, lamp_site=lamp_site, mesh=mesh)
+    return moe_apply(cfg, p, x, lamp_site=lamp_site, num_groups=num_groups,
+                     dropless=dropless)
+
+
+def _local_experts(w, mesh, E_l: int):
+    """This rank's experts (E_l, ...) of an expert leaf: a DTensor placed by
+    ``sharding.param_specs`` (E over `model`, FSDP over `data`) is gathered
+    over everything but `model`; a whole (E, ...) tensor (the train step's
+    gathered params) is sliced, with its gradient summed over `model` in
+    the backward so each rank holds the whole gradient. Gradients take the
+    whole-tensor route; the DTensor route serves forward passes."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if isinstance(w, DTensor):
+        pl = [Shard(0) if n == "model" else Replicate()
+              for n in mesh.mesh_dim_names]
+        return w.redistribute(mesh, pl).to_local()
+    i = SH.axis_index(mesh, "model")
+    return C.copy_to_axis(w, mesh, "model")[i * E_l:(i + 1) * E_l]
+
+
+def _replicated(w, mesh):
+    """A leaf that every rank of the `model` axis uses whole (the router):
+    gathered if a DTensor; its gradient summed over `model`."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(w, DTensor):
+        w = w.full_tensor()
+    return C.copy_to_axis(w, mesh, "model")
+
+
+def moe_apply_ep(cfg, p, x: torch.Tensor, *, lamp_site: LampSite, mesh,
+                 capacity_mult: float = 2.0
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Expert-parallel MoE (port of the JAX package's ``shard_map`` body):
+    no token movement at all.
+
+    Layout: x (B_l, T, d) is this rank's batch shard over (pod, data),
+    the same on every rank of its `model` line; the router is replicated;
+    the experts are E over `model`. Every rank routes its tokens, runs those
+    routed to its E / n_model experts with a local capacity of
+    ceil(B_l * T * k / E * capacity_mult) a local expert (foreign experts go
+    to a sentinel slot), and the per-token results are summed over `model`
+    with one all-reduce. Returns (y (B_l, T, d) in x's dtype, {
+    router_lamp_rate and kept_frac of this rank's tokens, moe_aux_loss
+    0}). Differentiable: x's and the router's gradients are summed over
+    `model`.
+    """
+    B, T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    n_model = SH.axis_size(mesh, "model")
+    E_l = E // n_model
+    m_idx = SH.axis_index(mesh, "model")
+    Tl = B * T
+    cap = max(1, math.ceil(Tl * k / E * capacity_mult))
+    dev = x.device
+
+    x2d = C.copy_to_axis(x.reshape(Tl, d), mesh, "model")
+    _, top_p, top_e, rate = route(cfg, _replicated(p["router"], mesh), x2d,
+                                  lamp_site)
+    flat_e = top_e.reshape(-1)
+    local_id = flat_e - m_idx * E_l
+    mine = (local_id >= 0) & (local_id < E_l)
+    pos = slots(torch.where(mine, local_id, E_l), E_l + 1)
+    keep = mine & (pos < cap)
+    lid_c = torch.clamp(local_id, 0, E_l - 1)
+    tok_idx = torch.arange(Tl, device=dev).repeat_interleave(k)
+    # the kept entries own distinct (expert, slot) pairs; the others go to
+    # a spare slot `cap` that is cut off
+    buf = torch.zeros((E_l, cap + 1, d), dtype=x.dtype, device=dev)
+    buf[lid_c, torch.where(keep, pos, cap)] = x2d[tok_idx]
+    out_buf = _experts(cfg, buf[:, :cap],
+                       _local_experts(p["we_in"], mesh, E_l),
+                       _local_experts(p["we_out"], mesh, E_l))
+    y_tok = out_buf[lid_c, torch.clamp(pos, 0, cap - 1)] * \
+        keep[:, None].to(out_buf.dtype)
+    y = C.reduce_over_axis(_combine(y_tok, top_p, Tl, k), mesh, "model")
+    kept = C.reduce_over_axis(torch.sum(keep.float()).reshape(1), mesh,
+                              "model").reshape(()) / (Tl * k)
+    metrics = {"router_lamp_rate": rate, "kept_frac": kept,
+               "moe_aux_loss": torch.zeros((), device=dev)}
+    return y.reshape(B, T, d).to(x.dtype), metrics

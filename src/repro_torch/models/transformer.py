@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.core import tree as T
 from repro_torch.core.policy import LampSite
+from repro_torch.distributed import sharding as SH
 
 from . import layers as LY
 from . import moe as MOE
@@ -141,8 +142,8 @@ def _ffn(cfg, p_l, h, r_site: LampSite, *, dropless: bool = False):
     """The block's FFN: the MoE dispatch over the whole bucket `h` for the
     MoE family, the MLP for the others."""
     if cfg.family == "moe":
-        m, _ = MOE.moe_apply(cfg, p_l["moe"], h, lamp_site=r_site,
-                             dropless=dropless)
+        m, _ = MOE.moe_dispatch(cfg, p_l["moe"], h, lamp_site=r_site,
+                                dropless=dropless)
         return m
     return LY.mlp_apply(cfg, p_l["mlp"], h)
 
@@ -152,6 +153,7 @@ class BlockCtx(NamedTuple):
     lamp_kq: LampSite
     lamp_router: LampSite
     attn_impl: str
+    moe_groups: int
 
 
 def block_apply(cfg, p, x, ctx: BlockCtx):
@@ -164,7 +166,9 @@ def block_apply(cfg, p, x, ctx: BlockCtx):
     x = x + a
     h = LY.apply_norm(cfg, x, p, "ln2")
     if cfg.family == "moe":
-        m, metrics = MOE.moe_apply(cfg, p["moe"], h, lamp_site=ctx.lamp_router)
+        m, metrics = MOE.moe_dispatch(cfg, p["moe"], h,
+                                      lamp_site=ctx.lamp_router,
+                                      num_groups=ctx.moe_groups)
         aux = {"attn_lamp_rate": rate, **metrics}
     else:
         m = LY.mlp_apply(cfg, p["mlp"], h)
@@ -184,10 +188,11 @@ def scan_blocks(cfg, blocks, x, ctx: BlockCtx, *, remat: bool = False):
                for k in auxes[0]}
 
 
-def _ctx(cfg, positions, use_lamp: bool, attn_impl: str) -> BlockCtx:
+def _ctx(cfg, positions, use_lamp: bool, attn_impl: str,
+         moe_groups: int = 1) -> BlockCtx:
     return BlockCtx(positions=positions, lamp_kq=LY.kq_site(cfg, use_lamp),
-                     lamp_router=_router_site(cfg, use_lamp),
-                     attn_impl=attn_impl)
+                    lamp_router=_router_site(cfg, use_lamp),
+                    attn_impl=attn_impl, moe_groups=moe_groups)
 
 
 def _embed_inputs(cfg, params, tokens: torch.Tensor, image_embeds):
@@ -221,26 +226,26 @@ def check_family(cfg) -> None:
 def forward(cfg, params, tokens: torch.Tensor, *,
             image_embeds: Optional[torch.Tensor] = None,
             use_lamp: bool = False, attn_impl: str = "auto",
-            remat: bool = False):
+            remat: bool = False, moe_groups: int = 1):
     """tokens: (B, S) -> (logits (B, P + S, vocab) float32, aux) on the
     tokens' device; for llava the stub frontend's `image_embeds` (B, P, d)
     are projected and prepended (P = 0 for the other families). `use_lamp`
     applies `cfg.lamp`'s KQ site (and, for the MoE family, its router
-    site, dispatched in one group); `attn_impl` is
+    site; ``moe.moe_dispatch`` in `moe_groups` groups); `attn_impl` is
     ``layers.attention_sublayer``'s. aux holds the per-layer metrics
     averaged over the layers (`attn_lamp_rate`, and the MoE's
     `router_lamp_rate`, `kept_frac`, `moe_aux_loss`). `remat`
     checkpoints each layer for the backward (``scan_blocks``)."""
     check_family(cfg)
     x, positions = _embed_inputs(cfg, params, tokens, image_embeds)
-    ctx = _ctx(cfg, positions, use_lamp, attn_impl)
+    ctx = _ctx(cfg, positions, use_lamp, attn_impl, moe_groups)
     x, aux = scan_blocks(cfg, params["blocks"], x, ctx, remat=remat)
     return LY.unembed(cfg, params["embed"], _final_norm(cfg, params, x)), aux
 
 
 def loss_fn(cfg, params, batch: Dict[str, torch.Tensor], *,
             use_lamp: bool = False, attn_impl: str = "auto",
-            remat: bool = True):
+            remat: bool = True, moe_groups: int = 1):
     """Next-token cross entropy, differentiable by autograd. batch: {tokens
     (B, S), [image_embeds]}. Returns (loss, metrics): the MoE family adds
     0.01 x its load-balancing loss. `remat` (on by default, as in the JAX
@@ -248,7 +253,8 @@ def loss_fn(cfg, params, batch: Dict[str, torch.Tensor], *,
     tokens = batch["tokens"]
     logits, aux = forward(cfg, params, tokens,
                           image_embeds=batch.get("image_embeds"),
-                          use_lamp=use_lamp, attn_impl=attn_impl, remat=remat)
+                          use_lamp=use_lamp, attn_impl=attn_impl, remat=remat,
+                          moe_groups=moe_groups)
     if cfg.family == "llava":
         logits = logits[:, batch["image_embeds"].shape[1]:]
     loss = next_token_nll(logits, tokens)
@@ -313,10 +319,21 @@ def decode_step(cfg, params, cache: Dict[str, Any], tokens: torch.Tensor, *,
                 use_lamp: bool = True):
     """One decode step. tokens: (B, 1). Writes the new K/V at `length` in
     place and returns (logits (B, 1, V), cache with length + 1). The MoE
-    dispatch is dropless."""
+    dispatch is dropless.
+
+    Under an ambient mesh (``distributed.sharding.set_mesh``) every rank
+    calls it with the same tokens and a cache whose k / v are DTensors laid
+    out by ``sharding.cache_specs`` (`length` whole or replicated): the rank
+    runs its batch rows (``sharding.batch_rows``) against its cache shard
+    (``layers.attention_decode_sublayer``), and the logits come back as a
+    DTensor sharded over the batch axes."""
     check_family(cfg)
-    length = cache["length"]
-    x = LY.embed(cfg, params["embed"], tokens.long(), length.long()[:, None])
+    mesh = SH.current_mesh()
+    B = tokens.shape[0]
+    rows = SH.batch_rows(mesh, B) if mesh is not None else slice(None)
+    length = SH.to_local(cache["length"])[rows]
+    x = LY.embed(cfg, params["embed"], tokens[rows].long(),
+                 length.long()[:, None])
     site = LY.kq_site(cfg, use_lamp)
     r_site = _router_site(cfg, use_lamp)
     for l in range(cfg.n_layers):
@@ -329,8 +346,11 @@ def decode_step(cfg, params, cache: Dict[str, Any], tokens: torch.Tensor, *,
         h = LY.apply_norm(cfg, x, p_l, "ln2")
         x = x + _ffn(cfg, p_l, h, r_site, dropless=True)
     x = _final_norm(cfg, params, x)
-    return LY.unembed(cfg, params["embed"], x), {
-        "k": cache["k"], "v": cache["v"], "length": length + 1}
+    logits = LY.unembed(cfg, params["embed"], x)
+    if mesh is not None:
+        logits = SH.from_rows(logits, mesh, B)
+    return logits, {"k": cache["k"], "v": cache["v"],
+                    "length": cache["length"] + 1}
 
 
 def _last_pad(valid_tok: torch.Tensor):

@@ -65,6 +65,16 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState,
     params in their dtypes, new state, {"grad_norm"}). `lr` (a float or a
     0-d tensor, e.g. a schedule's value) overrides `cfg.lr`."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    params, state = update(cfg, params, grads, state, lr=lr)
+    return params, state, {"grad_norm": gnorm}
+
+
+@torch.no_grad()
+def update(cfg: AdamWConfig, params, grads, state: AdamWState,
+           lr: Optional[torch.Tensor] = None) -> Tuple[Any, AdamWState]:
+    """`apply_updates` after the clip: the AdamW step of each leaf on its
+    own (so a rank can update its shards of params, grads and state
+    alone). Returns (new params, new state)."""
     step = state.step + 1
     lr = cfg.lr if lr is None else lr
     sf = step.float()
@@ -92,7 +102,7 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState,
     new_p = T.unflatten(params, [o[0] for o in out])
     new_m = T.unflatten(params, [o[1] for o in out])
     new_v = T.unflatten(params, [o[2] for o in out])
-    return new_p, AdamWState(step, new_m, new_v), {"grad_norm": gnorm}
+    return new_p, AdamWState(step, new_m, new_v)
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int,

@@ -41,7 +41,11 @@ obs = {"repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.tracing",
        "repro_torch.optim.adamw", "repro_torch.optim.compression",
        "repro_torch.checkpoint.manager", "repro_torch.distributed.straggler",
        "repro_torch.data.tokenizer", "repro_torch.launch.steps",
-       "repro_torch.launch.train", "repro_torch.runtime.train_loop"}
+       "repro_torch.launch.train", "repro_torch.runtime.train_loop",
+       "repro_torch.distributed.sharding",
+       "repro_torch.distributed.collectives",
+       "repro_torch.distributed.pipeline", "repro_torch.checkpoint.elastic",
+       "repro_torch.launch.mesh"}
 assert obs <= set(names), names
 for name in names:
     importlib.import_module(name)

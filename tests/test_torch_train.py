@@ -428,12 +428,13 @@ def test_training_entry_points_refuse_to_run_without_cuda(monkeypatch, tmp_path)
     """train, the CLI and make_train_step's parameters default to CUDA and
     raise without it: never a quiet fall back to the CPU."""
     from repro_torch.launch import train as TL
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.runtime import train_loop as TLOOP
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced(get_config("gpt2"))
     loop = TLOOP.TrainLoopConfig(total_steps=1, checkpoint_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        TLOOP.train(cfg, loop)
+        TLOOP.train(cfg, make_host_mesh(), loop)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TL.main(["--arch", "gpt2", "--reduced", "--steps", "1",
                  "--checkpoint-dir", str(tmp_path)])

@@ -42,8 +42,10 @@ from repro_torch.checkpoint.manager import CheckpointManager as TCM  # noqa: E40
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import tree as T  # noqa: E402
 from repro_torch.data.synthetic import DataConfig  # noqa: E402
+from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.distributed import straggler as TSTRAG  # noqa: E402
 from repro_torch.launch import train as TCLI  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh as port_host_mesh  # noqa: E402
 from repro_torch.models.convert import opt_from_jax, params_from_jax  # noqa: E402
 from repro_torch.optim import adamw as TADAM  # noqa: E402
 from repro_torch.runtime import train_loop as TLOOP  # noqa: E402
@@ -223,6 +225,14 @@ def test_failed_background_write_raises_at_wait(tmp_path):
 
 # ----------------------------------------------------------- train loop
 
+def port_train(cfg, loop, **kw):
+    """The port's train on a one-rank host mesh of this process (gloo),
+    its params and state gathered to plain tensors."""
+    out = TLOOP.train(cfg, port_host_mesh(device="cpu"), loop, **kw)
+    return {**out, "params": SH.gather(out["params"]),
+            "opt": SH.gather(out["opt"])}
+
+
 def _loop_cfgs():
     kw = dict(layers=1, d_model=32, vocab=64)
     return (jax_reduced(jax_get_config("glm4-9b"), **kw),
@@ -253,12 +263,9 @@ def loop_runs(tmp_path_factory):
         shutil.copytree(root / "j", root / name)
     start = jax.tree.map(np.asarray, first["params"])
     jax_out = JLOOP.train(jcfg, mesh, jloop(root / "j", 6), data_cfg=jdata)
-    port_out = TLOOP.train(cfg, tloop(root / "t", 6), data_cfg=data,
-                           device="cpu")
-    leg1 = TLOOP.train(cfg, tloop(root / "legs", 4), data_cfg=data,
-                       device="cpu")
-    leg2 = TLOOP.train(cfg, tloop(root / "legs", 6), data_cfg=data,
-                       device="cpu")
+    port_out = port_train(cfg, tloop(root / "t", 6), data_cfg=data)
+    leg1 = port_train(cfg, tloop(root / "legs", 4), data_cfg=data)
+    leg2 = port_train(cfg, tloop(root / "legs", 6), data_cfg=data)
     return dict(first=first, start=start, jax=jax_out, port=port_out,
                 legs=(leg1, leg2), root=root)
 
@@ -306,7 +313,7 @@ def test_resume_builds_its_target_without_drawing(tmp_path, monkeypatch):
     data = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2)
     loop = TLOOP.TrainLoopConfig(total_steps=1, checkpoint_every=1,
                                  log_every=100, checkpoint_dir=str(tmp_path))
-    TLOOP.train(cfg, loop, data_cfg=data, device="cpu")
+    port_train(cfg, loop, data_cfg=data)
     saved = TCM(tmp_path).restore(
         {"params": TLOOP.api.init_params(cfg, 0, device="cpu")})["params"]
     drawn = []
@@ -317,8 +324,8 @@ def test_resume_builds_its_target_without_drawing(tmp_path, monkeypatch):
         drawn.append(out.device.type)
         return out
     monkeypatch.setattr(torch, "randn", spy)
-    out = TLOOP.train(cfg, dataclasses.replace(loop, total_steps=1),
-                      data_cfg=data, device="cpu")
+    out = port_train(cfg, dataclasses.replace(loop, total_steps=1),
+                     data_cfg=data)
     assert drawn and set(drawn) == {"meta"}
     assert out["metrics"] == []
     for a, b in zip(T.leaves(out["params"]), T.leaves(saved)):
@@ -345,9 +352,8 @@ def test_preemption_flag_checkpoints_and_stops(tmp_path, monkeypatch):
 
     loop = TLOOP.TrainLoopConfig(total_steps=5, checkpoint_every=100,
                                  log_every=100, checkpoint_dir=str(tmp_path))
-    out = TLOOP.train(cfg, loop, data_cfg=DataConfig(
-        vocab=cfg.vocab, seq_len=16, global_batch=2), extra_batch=extra,
-        device="cpu")
+    out = port_train(cfg, loop, data_cfg=DataConfig(
+        vocab=cfg.vocab, seq_len=16, global_batch=2), extra_batch=extra)
     assert len(out["metrics"]) == 2 and guards[0].requested
     got = TCM(tmp_path).restore({"params": out["params"], "opt": out["opt"]},
                                 step=1)
