@@ -271,6 +271,26 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            MAX) of CUDA tensors, which gloo takes, staging them through the
            host; an exception in any rank fails the phase. Times of (b)
            are host wall times through gloo, not NVLink figures
+  dryrun   the dry run (launch.dryrun; a host tool: fake tensors, a fake
+           process group, nothing allocated on a card). (a) A subprocess
+           (no card visible, started before phase moe so that its host
+           work overlaps the card phases) runs run_cell on DRYRUN_CELLS,
+           one cell of each kind on the fake (32, 8) / (2, 32, 8) meshes
+           of 256 / 512 ranks: each must be ok, and its roofline line is
+           printed. (b) DRYRUN_CUT, olmoe-1b-7b at its published widths
+           cut to 2 layers at decode_32k's per-rank shape: the subprocess
+           counts its serve step on a one-rank fake mesh, and this process
+           runs the same step on the card on a one-rank NCCL mesh (random
+           bfloat16 weights, half-full cache). Gates: the flops equal
+           FlopCounterMode's on the card exactly; peak_bytes_est over
+           max_memory_allocated above the baseline before the step's
+           arguments were placed inside DRYRUN_MEM_BAND, the estimate
+           with the arguments left out outside it; the median of
+           DRYRUN_TIMED warm steps (CUDA events) no shorter than the floor
+           max(flops over the peak of their type, the multiplied
+           arguments' bytes over HBM_BW); the kernels' launch counters
+           unchanged. Printed: the step over its floor and over the
+           roofline's largest term
 
 The loud rule holds for every engine run of every phase but the ladder
 exhaustion run: no recovery through the gather or FP32 rung (they run the
@@ -3891,6 +3911,196 @@ def phase_distributed():
             f"{ {k: v for k, v in checks.items() if not v} }")
 
 
+# phase dryrun (a): run_cell on one cell of each kind, in a subprocess that
+# plays rank 0 of a fake process group (this process holds a real one);
+# started before phase moe so that its host work overlaps the card phases
+DRYRUN_CELLS = (("olmoe-1b-7b", "decode_32k", False),
+                ("olmoe-1b-7b", "train_4k", False),
+                ("olmoe-1b-7b", "prefill_32k", True),
+                ("rwkv6-7b", "long_500k", False))
+# (b): olmoe-1b-7b cut to 2 layers (published widths) at decode_32k's
+# per-rank shape on the (32, 8) mesh: 128 / 32 rows, 32,768 / 8 positions;
+# counted on fake tensors on a one-rank fake mesh, run on the card on a
+# one-rank NCCL mesh
+DRYRUN_CUT = dict(arch="olmoe-1b-7b", layers=2, batch=4, seq=4096)
+# peak_bytes_est over max_memory_allocated above the pre-step baseline,
+# stated in PERF.md section 6 before the first card run; the estimate with
+# the arguments left out (the control) must fall outside it
+DRYRUN_MEM_BAND = (0.8, 1.25)
+DRYRUN_TIMED = 10
+DRYRUN_WORKER_TIMEOUT = 900
+
+
+def dryrun_cut():
+    """(cfg, shape) of phase dryrun (b)."""
+    from repro_torch.configs import InputShape, get_config
+    c = DRYRUN_CUT
+    return (get_config(c["arch"]).replace(n_layers=c["layers"]),
+            InputShape("decode_per_rank", "decode", c["seq"], c["batch"]))
+
+
+def dryrun_worker(out_path):
+    """The subprocess of phase dryrun: (b)'s cut cell counted on a one-rank
+    fake mesh, then DRYRUN_CELLS through run_cell on the fake production
+    meshes; the records as JSON at out_path. It touches no card."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_mesh
+    cfg, shp = dryrun_cut()
+    DR.start_fake_group(1)
+    cut = DR.count_step(cfg, shp, make_mesh((1, 1), ("data", "model"),
+                                            device="cpu"))
+    cells = [DR.run_cell(a, s, mp) for a, s, mp in DRYRUN_CELLS]
+    with open(out_path, "w") as f:
+        json.dump({"cut": cut, "cells": cells}, f)
+
+
+def start_dryrun_worker(tmp):
+    """Popen of `dryrun_worker` writing under tmp (no card: an empty
+    CUDA_VISIBLE_DEVICES), its log beside."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    log = open(os.path.join(tmp, "dryrun.log"), "w")
+    out = os.path.join(tmp, "dryrun.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as CS; CS.dryrun_worker({out!r})"],
+        cwd=HERE, stdout=log, stderr=subprocess.STDOUT, env=env)
+    return proc, log, out
+
+
+def dryrun_on_card(cfg, shp):
+    """(b) on the card: the cut cell's serve step on a one-rank NCCL mesh,
+    random bfloat16 weights and cache (half full). Its peak memory above
+    the baseline before its arguments were placed, its flops
+    (FlopCounterMode), and DRYRUN_TIMED warm steps timed by CUDA events."""
+    import gc
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.core import tree as T
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    mesh = make_host_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    like = SP.params_shape(cfg, SP.fake_mode())
+    raw = T.map(lambda t: (0.02 * torch.randn(t.shape, generator=g,
+                                              device=DEVICE)).to(t.dtype),
+                like)
+    params = SH.distribute(raw, SH.param_specs(raw, mesh), mesh)
+    cache = api.init_cache(cfg, shp.global_batch, shp.seq_len,
+                           torch.bfloat16, device=DEVICE)
+    for k in ("k", "v"):
+        cache[k].normal_(generator=g)
+    cache["length"].fill_(shp.seq_len // 2)
+    cache = SH.distribute(cache, SH.cache_specs(cache, mesh), mesh)
+    tokens = torch.randint(0, cfg.vocab, (shp.global_batch, 1), generator=g,
+                           device=DEVICE, dtype=torch.int32)
+    del raw
+    step = ST.make_sharded_serve_step(
+        cfg, mesh, model_kwargs=DR.model_defaults(cfg, shp,
+                                                  SH.batch_size(mesh), {}))
+    gc.collect()
+    torch.cuda.synchronize()
+    args_bytes = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    logits, _ = step(params, cache, tokens)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    finite = bool(torch.isfinite(logits.full_tensor()).all())
+    del logits
+    with FlopCounterMode(display=False) as fc:
+        step(params, cache, tokens)
+    for _ in range(3):
+        step(params, cache, tokens)
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(DRYRUN_TIMED)]
+    for a, b in ev:
+        a.record()
+        step(params, cache, tokens)
+        b.record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in ev]
+    del params, cache, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flops": int(fc.get_total_flops()), "peak_bytes": peak,
+            "argument_bytes": args_bytes, "logits_finite": finite,
+            "ms": ms, "ms_median": statistics.median(ms)}
+
+
+def phase_dryrun(worker):
+    """The dry run (module docstring); `worker` = start_dryrun_worker's."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MESH
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    proc, log, out = worker
+    before = kernel_launches()
+    cfg, shp = dryrun_cut()
+    card = dryrun_on_card(cfg, shp)
+    after = kernel_launches()
+    print(f"dryrun: cut cell on the card: {card['flops']} flops, peak "
+          f"{card['peak_bytes']} B above the baseline ({card['argument_bytes']}"
+          f" B of arguments), median step {card['ms_median']:.4g} ms; "
+          f"waiting for the worker", flush=True)
+    t1 = time.perf_counter()
+    rc = proc.wait(timeout=DRYRUN_WORKER_TIMEOUT)
+    log.close()
+    with open(log.name) as f:
+        tail = f.read()[-3000:]
+    require(rc == 0, f"dryrun worker exited {rc}: {tail}")
+    with open(out) as f:
+        res = json.load(f)
+    wait_s = time.perf_counter() - t1
+    checks = {}
+    for rec in res["cells"]:
+        tag = f"{rec['arch']}__{rec['shape']}__{rec['mesh']}"
+        checks[f"dryrun_cell_ok_{tag}"] = rec["status"] == "ok" and \
+            rec["n_devices"] == (512 if rec["mesh"] == "multi" else 256)
+        print(f"dryrun {tag}: {DR.roofline_line(rec)}", flush=True)
+    cut = res["cut"]
+    cost, mem = cut["cost"], cut["memory"]
+    lo, hi = DRYRUN_MEM_BAND
+    mem_ratio = mem["peak_bytes_est"] / card["peak_bytes"]
+    control = (mem["peak_bytes_est"] - mem["argument_bytes"]) / card["peak_bytes"]
+    floor_s = max(cost["flops_bf16_per_device"] / MESH.PEAK_FLOPS_BF16
+                  + cost["flops_fp32_per_device"] / MESH.PEAK_FLOPS_FP32,
+                  cost["matmul_argument_bytes_per_device"] / MESH.HBM_BW)
+    roof = cut["roofline"]
+    roof_s = max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
+    step_s = card["ms_median"] / 1e3
+    checks["dryrun_flops_exact"] = card["flops"] == int(cost["flops_per_device"])
+    checks["dryrun_memory_in_band"] = lo <= mem_ratio <= hi
+    checks["dryrun_memory_control_outside_band"] = not lo <= control <= hi
+    checks["dryrun_time_not_below_floor"] = step_s >= floor_s
+    checks["dryrun_logits_finite"] = card["logits_finite"]
+    checks["dryrun_no_kernel_launch"] = after == before
+    print(f"dryrun: cut cell step {card['ms_median']:.4g} ms = "
+          f"{step_s / floor_s:.3g} x its floor, {step_s / roof_s:.3g} x the "
+          f"roofline's largest term ({roof['dominant']}); memory estimate "
+          f"{mem_ratio:.4g} of the card's peak (control {control:.4g}); "
+          f"on {smi}", flush=True)
+    emit("dryrun", card=smi, cut=dict(DRYRUN_CUT, record=cut),
+         on_card=card, flops_counted=cost["flops_per_device"],
+         mem_ratio=mem_ratio, mem_control_ratio=control,
+         mem_band=DRYRUN_MEM_BAND, floor_s=floor_s, step_s=step_s,
+         time_over_floor=step_s / floor_s,
+         time_over_roofline_max=step_s / roof_s,
+         cells=res["cells"], worker_wait_s=wait_s,
+         launches_before=before, launches_after=after,
+         seconds=time.perf_counter() - t0, checks=checks,
+         ok=all(checks.values()))
+    require(all(checks.values()), f"dryrun phase failed its checks: "
+            f"{ {k: v for k, v in checks.items() if not v} }")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_device()
@@ -3918,11 +4128,20 @@ def main() -> int:
     phase_policy(params, cfg)
     phase_audit(params, cfg, ref_tokens)
     phase_phased(params, cfg, ref_tokens)
-    phase_moe()
-    phase_paper()
-    phase_static()
-    phase_train()
-    phase_distributed()
+    with tempfile.TemporaryDirectory() as tmp:
+        worker = start_dryrun_worker(tmp)
+        try:
+            phase_moe()
+            phase_paper()
+            phase_static()
+            phase_train()
+            phase_distributed()
+            phase_dryrun(worker)
+        finally:
+            if worker[0].poll() is None:
+                worker[0].kill()
+            worker[0].wait()
+            worker[1].close()
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows + micro_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

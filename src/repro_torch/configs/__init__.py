@@ -12,3 +12,17 @@ from .base import (
     register,
 )
 from . import archs  # noqa: F401  (populates the registry)
+
+# the architectures of the dry run's sweep (``launch.dryrun --all``)
+ASSIGNED_ARCHS = [
+    "whisper-medium",
+    "qwen3-moe-30b-a3b",
+    "olmoe-1b-7b",
+    "gemma-7b",
+    "starcoder2-15b",
+    "glm4-9b",
+    "mistral-large-123b",
+    "llava-next-mistral-7b",
+    "hymba-1.5b",
+    "rwkv6-7b",
+]

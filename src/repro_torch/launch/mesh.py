@@ -28,6 +28,7 @@ from repro_torch.models.transformer import resolve_device
 
 # H100 SXM5 peaks (NVIDIA H100 Tensor Core GPU data sheet), per GPU
 PEAK_FLOPS_BF16 = 989e12      # FLOP/s, dense BF16 on the tensor cores
+PEAK_FLOPS_FP32 = 67e12       # FLOP/s, FP32 on the CUDA cores (TF32 is off)
 HBM_BW = 3.35e12              # bytes/s, HBM3
 NVLINK_BW_PER_LINK = 50e9     # bytes/s, NVLink 4 (900 GB/s over 18 links)
 

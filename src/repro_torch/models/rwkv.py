@@ -225,10 +225,12 @@ def forward(cfg, params, tokens, *, state=None, wkv_chunk: int = 0,
     return LY.unembed(cfg, params["embed"], x), new_state, {}
 
 
-def loss_fn(cfg, params, batch, *, remat: bool = True, **_):
-    """Next-token cross entropy, on the step scan. Returns (loss,
-    metrics)."""
-    logits, _, aux = forward(cfg, params, batch["tokens"], remat=remat)
+def loss_fn(cfg, params, batch, *, remat: bool = True, wkv_chunk: int = 0,
+            **_):
+    """Next-token cross entropy, on the step scan (on the chunked
+    recurrence at `wkv_chunk` > 0). Returns (loss, metrics)."""
+    logits, _, aux = forward(cfg, params, batch["tokens"], remat=remat,
+                             wkv_chunk=wkv_chunk)
     loss = next_token_nll(logits, batch["tokens"])
     return loss, {"loss": loss, **aux}
 

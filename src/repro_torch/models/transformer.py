@@ -138,12 +138,14 @@ def _router_site(cfg, use_lamp: bool) -> LampSite:
     return r if use_lamp and r.enabled else LampSite(enabled=False)
 
 
-def _ffn(cfg, p_l, h, r_site: LampSite, *, dropless: bool = False):
-    """The block's FFN: the MoE dispatch over the whole bucket `h` for the
-    MoE family, the MLP for the others."""
+def _ffn(cfg, p_l, h, r_site: LampSite, *, dropless: bool = False,
+         num_groups: int = 1):
+    """The block's FFN: the MoE dispatch over the whole bucket `h` (in
+    `num_groups` dispatch groups) for the MoE family, the MLP for the
+    others."""
     if cfg.family == "moe":
         m, _ = MOE.moe_dispatch(cfg, p_l["moe"], h, lamp_site=r_site,
-                                dropless=dropless)
+                                num_groups=num_groups, dropless=dropless)
         return m
     return LY.mlp_apply(cfg, p_l["mlp"], h)
 
@@ -287,12 +289,13 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def prefill(cfg, params, tokens: torch.Tensor, cache: Dict[str, Any], *,
             image_embeds: Optional[torch.Tensor] = None, use_lamp: bool = True,
-            attn_impl: str = "auto"):
+            attn_impl: str = "auto", moe_groups: int = 1):
     """Run the whole prompt (behind llava's image rows), write its K/V at
     positions 0 .. T - 1 of the cache in place, and return (last-position
     logits (B, 1, V), cache) with length T. `attn_impl` "auto" is "full" up
     to 2048 positions, else "chunked" (the relaxed rule, the site's
-    `onepass`). The MoE dispatch takes the capacity of the whole prompt."""
+    `onepass`). The MoE dispatch takes the capacity of the whole prompt in
+    `moe_groups` dispatch groups."""
     check_family(cfg)
     B = tokens.shape[0]
     x, positions = _embed_inputs(cfg, params, tokens, image_embeds)
@@ -308,7 +311,7 @@ def prefill(cfg, params, tokens: torch.Tensor, cache: Dict[str, Any], *,
                                 attn_impl=attn_impl)
         x = x + a
         h = LY.apply_norm(cfg, x, p_l, "ln2")
-        x = x + _ffn(cfg, p_l, h, ctx.lamp_router)
+        x = x + _ffn(cfg, p_l, h, ctx.lamp_router, num_groups=moe_groups)
     cache = {"k": cache["k"], "v": cache["v"],
              "length": torch.full((B,), T, dtype=torch.int32, device=x.device)}
     x = _final_norm(cfg, params, x[:, -1:])
@@ -316,10 +319,12 @@ def prefill(cfg, params, tokens: torch.Tensor, cache: Dict[str, Any], *,
 
 
 def decode_step(cfg, params, cache: Dict[str, Any], tokens: torch.Tensor, *,
-                use_lamp: bool = True):
+                use_lamp: bool = True, moe_dropless: bool = True,
+                moe_groups: int = 1):
     """One decode step. tokens: (B, 1). Writes the new K/V at `length` in
     place and returns (logits (B, 1, V), cache with length + 1). The MoE
-    dispatch is dropless.
+    dispatch is dropless by default, else at capacity, in `moe_groups`
+    dispatch groups (both ignored on the expert-parallel path).
 
     Under an ambient mesh (``distributed.sharding.set_mesh``) every rank
     calls it with the same tokens and a cache whose k / v are DTensors laid
@@ -344,7 +349,8 @@ def decode_step(cfg, params, cache: Dict[str, Any], tokens: torch.Tensor, *,
             length=length, lamp_site=site)
         x = x + a
         h = LY.apply_norm(cfg, x, p_l, "ln2")
-        x = x + _ffn(cfg, p_l, h, r_site, dropless=True)
+        x = x + _ffn(cfg, p_l, h, r_site, dropless=moe_dropless,
+                     num_groups=moe_groups)
     x = _final_norm(cfg, params, x)
     logits = LY.unembed(cfg, params["embed"], x)
     if mesh is not None:

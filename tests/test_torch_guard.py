@@ -45,7 +45,9 @@ obs = {"repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.tracing",
        "repro_torch.distributed.sharding",
        "repro_torch.distributed.collectives",
        "repro_torch.distributed.pipeline", "repro_torch.checkpoint.elastic",
-       "repro_torch.launch.mesh"}
+       "repro_torch.launch.mesh", "repro_torch.launch.specs",
+       "repro_torch.launch.op_cost", "repro_torch.launch.roofline",
+       "repro_torch.launch.dryrun"}
 assert obs <= set(names), names
 for name in names:
     importlib.import_module(name)

@@ -77,7 +77,7 @@ def shape_trees():
     from repro_torch import configs as TC
     from repro_torch.models import api as TAPI
     out = {}
-    for arch in JC.ASSIGNED_ARCHS + ["gpt2-small"]:
+    for arch in TC.ASSIGNED_ARCHS + ["gpt2-small"]:
         jcfg, tcfg = JC.get_config(arch), TC.get_config(arch)
         jp = jax.eval_shape(lambda: JAPI.init_params(jcfg, jax.random.PRNGKey(0)))
         jc = jax.eval_shape(lambda: JAPI.init_cache(jcfg, 64, 2048, jnp.bfloat16))
