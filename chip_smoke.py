@@ -291,6 +291,34 @@ one JSON line; any failure ends the run with a non-zero exit. Phases:
            arguments' bytes over HBM_BW); the kernels' launch counters
            unchanged. Printed: the step over its floor and over the
            roofline's largest term
+  tp       the tensor-parallel steps of the transformer families
+           (launch.steps.make_sharded_*_step: FSDP over data x tensor
+           parallelism over model; plain PyTorch, no kernel: every
+           wrapper's launch count must stay still) on TP_RANKS processes
+           sharing the card over gloo, mesh TP_MESH (data 2, model 2),
+           glm4-9b at its published widths cut to TP_LAYERS layers (its
+           heads and vocabulary split whole; its gated MLP's gate and up
+           columns lie in different ranks' shards, so wi is gathered over
+           model a layer at a time). (a) FP32, against the plain steps of
+           this process on the same seeded weights: one train step's loss
+           and grad_norm within TP_LOSS_RTOL; each leaf's clipped
+           gradient (AdamW's first m over 1 - b1) within TP_GRAD_REL in
+           relative L2, the control (the one-rank step on half the
+           batch, one data rank's rows) outside it for every leaf; the new
+           params within TP_PARAM_ATOL of the one-rank step's once each
+           side's own gradient is taken through AdamW's first step, and
+           all within TP_PARAM_MAX_LR x lr (those beyond TP_PARAM_ATOL
+           printed with the |g| they have); prefill and TP_NEW greedy
+           decode steps, tokens equal (logits printed). (b) bfloat16: each rank's
+           max_memory_allocated over one train step, above its baseline
+           before the arguments, within TP_MEM_BAND of op_cost's
+           peak_bytes_est for the same step on a fake TP_MESH group
+           (counted by phase dryrun's worker), and below the
+           data-parallel step's floor (the same arguments plus the whole
+           model's params and gradients, printed). (c) The 4-rank step's
+           time and the one-rank step's: gloo stages its collectives
+           through the host, so these are not NVLink times. An exception
+           in any rank fails the phase
 
 The loud rule holds for every engine run of every phase but the ladder
 exhaustion run: no recovery through the gather or FP32 rung (they run the
@@ -3942,7 +3970,8 @@ def dryrun_cut():
 def dryrun_worker(out_path):
     """The subprocess of phase dryrun: (b)'s cut cell counted on a one-rank
     fake mesh, then DRYRUN_CELLS through run_cell on the fake production
-    meshes; the records as JSON at out_path. It touches no card."""
+    meshes, then phase tp's bfloat16 train step on a fake TP_MESH group of
+    TP_RANKS; the records as JSON at out_path. It touches no card."""
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch.mesh import make_mesh
     cfg, shp = dryrun_cut()
@@ -3950,8 +3979,11 @@ def dryrun_worker(out_path):
     cut = DR.count_step(cfg, shp, make_mesh((1, 1), ("data", "model"),
                                             device="cpu"))
     cells = [DR.run_cell(a, s, mp) for a, s, mp in DRYRUN_CELLS]
+    DR.start_fake_group(TP_RANKS)
+    tp = DR.count_step(tp_cfg(torch.bfloat16), tp_train_shape(),
+                       make_mesh(TP_MESH, ("data", "model"), device="cpu"))
     with open(out_path, "w") as f:
-        json.dump({"cut": cut, "cells": cells}, f)
+        json.dump({"cut": cut, "cells": cells, "tp": tp}, f)
 
 
 def start_dryrun_worker(tmp):
@@ -4099,6 +4131,445 @@ def phase_dryrun(worker):
          ok=all(checks.values()))
     require(all(checks.values()), f"dryrun phase failed its checks: "
             f"{ {k: v for k, v in checks.items() if not v} }")
+    return res["tp"]
+
+
+# phase tp: the tensor-parallel steps of the transformer families
+# (launch.steps.make_sharded_*_step: FSDP over data x tensor parallelism
+# over model) on TP_RANKS processes sharing the card over gloo, glm4-9b at
+# its published widths (d 4096, 32 heads on 2 KV heads, ff 13696 swiglu,
+# vocabulary 151,552) cut to TP_LAYERS layers: on (data 2, model 2) its 2
+# KV heads and 32 heads split whole, its gate / up columns do not (wi is
+# gathered over model a layer at a time), its vocabulary splits
+TP_ARCH, TP_LAYERS = "glm4-9b", 2
+TP_RANKS, TP_MESH = 4, (2, 2)
+TP_BATCH, TP_SEQ = 4, 128                 # train: 2 rows a data rank
+TP_PROMPT, TP_CACHE, TP_NEW = 32, 64, 8   # prefill / greedy decode, 2 rows
+TP_SEED = 13
+TP_LOSS_RTOL = 1e-5                       # loss and grad_norm, 4 ranks vs 1
+# the gradients, 4 ranks against 1, FP32, leaf by leaf: the clipped
+# gradient g = m / (1 - b1) from AdamW's first m, relative L2 per leaf
+# over every rank's shard. The summation orders differ (row-parallel SUM
+# over model, reduce-scatter over data), a roundoff of about 1e-6; a
+# replicated leaf summed over model, or a missed part, reads 1. The control
+# in the same run: the one-rank step on one data rank's rows only
+TP_GRAD_REL = 1e-3
+# the updated params, 4 ranks against 1: an element's first AdamW step is
+# lr u(g) + lr wd p with u(g) = g / (|g| + eps), lr sign(g) where |g| >> eps
+# and blind to g's scale (the gradient gate carries that). Where |g| is
+# near eps (1e-8) roundoff in g moves u(g) by up to ~1, so the new params
+# are held to the one-rank step's once each side's own u(g) is applied
+# (within TP_PARAM_ATOL), and every element within TP_PARAM_MAX_LR x lr;
+# the count beyond TP_PARAM_ATOL is printed with those elements' |g|
+TP_PARAM_ATOL = 3e-7                      # lr / 1000 at lr 3e-4
+TP_PARAM_MAX_LR = 1.0
+# each rank's bfloat16 step: max_memory_allocated above the baseline before
+# its arguments over op_cost's peak_bytes_est of the same step on a fake
+# TP_MESH group (the worker of phase dryrun), as phase dryrun's band
+TP_MEM_BAND = (0.8, 1.25)
+
+
+def tp_cfg(dtype):
+    from repro_torch.configs import get_config
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    return get_config(TP_ARCH).replace(n_layers=TP_LAYERS, dtype=name)
+
+
+def tp_train_shape():
+    from repro_torch.configs import InputShape
+    return InputShape("tp_train", "train", TP_SEQ, TP_BATCH)
+
+
+def tp_params(cfg, mesh=None):
+    """cfg's params on the card, each leaf drawn whole from its own seeded
+    CUDA generator (0.02 N(0, 1), the same values in every process) in the
+    config's dtype; with `mesh`, placed by param_specs one leaf at a time
+    (the rank keeps its shard)."""
+    from repro_torch.core import tree as T
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import specs as SP
+    like = SP.params_shape(cfg, SP.fake_mode())
+    specs = T.leaves(SH.param_specs(like, mesh)) if mesh is not None else None
+    out = []
+    for i, t in enumerate(T.leaves(like)):
+        g = torch.Generator(device=DEVICE).manual_seed(TP_SEED + i)
+        w = (0.02 * torch.randn(t.shape, generator=g, device=DEVICE)).to(
+            t.dtype)
+        if mesh is not None:
+            w = SH.distribute({"x": w}, {"x": specs[i]}, mesh)["x"]
+        out.append(w)
+    return T.unflatten(like, out)
+
+
+def tp_inputs(cfg):
+    """(train batch, prompt): token ids from a seeded CPU generator."""
+    g = torch.Generator().manual_seed(TP_SEED)
+    train = torch.randint(0, cfg.vocab, (TP_BATCH, TP_SEQ), generator=g,
+                          dtype=torch.int32)
+    prompt = torch.randint(0, cfg.vocab, (2, TP_PROMPT), generator=g,
+                           dtype=torch.int32)
+    return {"tokens": train.to(DEVICE)}, {"tokens": prompt.to(DEVICE)}
+
+
+def tp_greedy(prefill, serve, params, cache, prompt, full):
+    """Prefill, then TP_NEW greedy decode steps: (tokens (2, TP_NEW),
+    [logits of each step])."""
+    logits, cache = prefill(params, cache, prompt)
+    seen, toks = [full(logits)], []
+    for _ in range(TP_NEW):
+        tok = seen[-1][:, -1].argmax(-1).to(torch.int32)[:, None]
+        toks.append(tok)
+        logits, cache = serve(params, cache, tok)
+        seen.append(full(logits))
+    return torch.cat(toks, 1).cpu(), [x.cpu() for x in seen]
+
+
+def _synced_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def tp_one_rank():
+    """The reference: the plain steps of this process on the card, FP32:
+    one train step (and its time, a second step from the same state),
+    then prefill and TP_NEW greedy decode steps."""
+    import gc
+    from repro_torch.core import tree as T
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    cfg = tp_cfg(torch.float32)
+    params = tp_params(cfg)
+    batch, prompt = tp_inputs(cfg)
+    step = ST.make_train_step(cfg, adamw.AdamWConfig())
+    opt = adamw.init_state(params)
+    out, first_s = _synced_s(lambda: step(params, opt, batch))
+    m = out[2]
+    res = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "params": dict(_flat_cpu(out[0])), "m": dict(_flat_cpu(out[1].m)),
+           "first_s": first_s}
+    del out
+    gc.collect()
+    _, res["step_s"] = _synced_s(
+        lambda: step(params, opt, batch)[2]["loss"])
+    # the control: the gradient of data rank 0's rows alone
+    half = {"tokens": batch["tokens"][:TP_BATCH // TP_MESH[0]]}
+    ctl = step(params, opt, half)[1].m
+    res["control_rel"] = {}
+    for q, t in T.flatten_with_path(ctl):
+        full = res["m"]["/".join(q)].to(DEVICE)
+        res["control_rel"]["/".join(q)] = float(
+            torch.linalg.vector_norm(t - full) / torch.linalg.vector_norm(full))
+    del ctl, full, opt
+    gc.collect()
+    cache = api.init_cache(cfg, 2, TP_CACHE, torch.float32, device=DEVICE)
+    res["tokens"], res["logits"] = tp_greedy(
+        ST.make_prefill_step(cfg), ST.make_serve_step(cfg), params, cache,
+        prompt, lambda t: t)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _flat_cpu(tree):
+    from repro_torch.core import tree as T
+    return [("/".join(p), t.detach().cpu()) for p, t in
+            T.flatten_with_path(tree)]
+
+
+def tp_rank(rank, tmp):
+    """One of TP_RANKS processes sharing the card over gloo, mesh TP_MESH:
+    (a) FP32: the sharded train step twice from the same state (the
+    second timed), its new params' and first m's shards written for the
+    main process,
+    the sharded prefill and greedy decode; (b) bfloat16: one sharded train
+    step, max_memory_allocated above the baseline before its arguments."""
+    import datetime
+    import faulthandler
+    import gc
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import tree as T
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    # a crash in native code (gloo, CUDA) prints this rank's Python stack
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), TP_RANKS),
+        rank=rank, world_size=TP_RANKS,
+        timeout=datetime.timedelta(seconds=300))
+    mesh = init_device_mesh("cuda", TP_MESH, mesh_dim_names=("data", "model"))
+    res = {"rank": rank, "coords": {a: SH.axis_index(mesh, a)
+                                    for a in ("data", "model")}}
+
+    def stage(what):
+        print(f"tp: rank {rank} {what}", flush=True)
+    cfg = tp_cfg(torch.float32)
+    params = tp_params(cfg, mesh)
+    stage("FP32 params placed")
+    batch, prompt = tp_inputs(cfg)
+    opt = _tp_opt(params, mesh)
+    step = ST.make_sharded_train_step(cfg, adamw.AdamWConfig(), mesh)
+    out, res["first_s"] = _synced_s(lambda: step(params, opt, batch))
+    m = out[2]
+    res["loss"], res["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+    stage("FP32 train step done")
+    m_loc = {"/".join(p): t.to_local().cpu()
+             for p, t in T.flatten_with_path(out[1].m)}
+    shards = {"/".join(p): (SH.spec_of(t), t.to_local().cpu(), m_loc[
+        "/".join(p)]) for p, t in T.flatten_with_path(out[0])}
+    torch.save(shards, os.path.join(tmp, f"shards{rank}.pt"))
+    del out, shards
+    gc.collect()
+    _, res["step_s"] = _synced_s(
+        lambda: step(params, opt, batch)[2]["loss"])
+    del opt
+    gc.collect()
+    cache = api.init_cache(cfg, 2, TP_CACHE, torch.float32, device=DEVICE)
+    cache = SH.distribute(cache, SH.cache_specs(cache, mesh), mesh)
+    res["tokens"], res["logits"] = tp_greedy(
+        ST.make_sharded_prefill_step(cfg, mesh),
+        ST.make_sharded_serve_step(cfg, mesh), params, cache, prompt,
+        tp_full)
+    stage("FP32 prefill and decode done")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = tp_cfg(torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = tp_params(cfg, mesh)
+    opt = _tp_opt(params, mesh)
+    step = ST.make_sharded_train_step(cfg, adamw.AdamWConfig(), mesh)
+    gc.collect()
+    torch.cuda.synchronize()
+    res["bf16_argument_bytes"] = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    m, res["bf16_step_s"] = _synced_s(lambda: step(params, opt, batch)[2])
+    res["bf16_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    res["bf16_loss"] = float(m["loss"])
+    stage("bfloat16 train step done")
+    res["launches"] = kernel_launches()
+    del params, opt
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_full(t):
+    """The whole of a DTensor by c10d all-gathers over the mesh axes it is
+    split on, minor first: gloo takes those on CUDA tensors, where
+    DTensor.full_tensor's functional collectives crash the process on the
+    H100 (SIGSEGV in wait_tensor; torch 2.11)."""
+    from repro_torch.distributed import collectives as C
+    local = t.to_local()
+    for name, p in reversed(list(zip(t.device_mesh.mesh_dim_names,
+                                     t.placements))):
+        if p.is_shard():
+            local = C.all_gather(local, t.device_mesh, name, p.dim)
+    return local
+
+
+def _tp_opt(params, mesh):
+    """AdamW's zero state placed as the params are (opt_specs)."""
+    from repro_torch.core import tree as T
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.optim import adamw
+    local = adamw.init_state(T.map(SH.to_local, params))
+    return adamw.AdamWState(
+        step=SH.distribute({"s": local.step}, {"s": ()}, mesh)["s"],
+        m=T.map(_placed_as, local.m, params),
+        v=T.map(_placed_as, local.v, params))
+
+
+def _placed_as(local, p):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, p.device_mesh, p.placements,
+                              run_check=False, shape=p.shape,
+                              stride=p.stride())
+
+
+def _slice_of(t, spec, coords):
+    """The rank at mesh coordinates `coords` of TP_MESH's shard of the
+    whole tensor t placed by spec."""
+    sizes = dict(zip(("data", "model"), TP_MESH))
+    for d, ax in enumerate(spec):
+        if isinstance(ax, str):
+            size = t.shape[d] // sizes[ax]
+            t = t.narrow(d, coords[ax] * size, size)
+    return t
+
+
+def phase_tp(tp_count):
+    """The tensor-parallel steps (module docstring); `tp_count` is the
+    dryrun worker's op_cost record of the bfloat16 train step on a fake
+    TP_MESH group."""
+    import gc
+    import torch.multiprocessing as mp
+    from repro_torch.launch import specs as SP
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = kernel_launches()
+    one = tp_one_rank()
+    acfg = adamw.AdamWConfig()
+    lr = acfg.lr
+    apart, worst, resid, n = 0, 0.0, 0.0, 0
+    sq = collections.defaultdict(lambda: [0.0, 0.0])   # leaf: |dg|^2, |g|^2
+    apart_leaf = collections.Counter()
+    # |g| of the elements beyond TP_PARAM_ATOL, by decade below 1e-8 .. 1e-3
+    g_edges = [1e-8, 1e-7, 1e-6, 1e-5, 1e-4, 1e-3]
+    g_hist, g_apart_max = [0] * (len(g_edges) + 1), 0.0
+
+    def u(m):
+        g = m.float() / (1 - acfg.b1)
+        return g / (torch.abs(g) + acfg.eps)
+    t1 = time.perf_counter()
+    # an exception in any rank ends the spawn, and so the phase
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(tp_rank, args=(tmp,), nprocs=TP_RANKS)
+        spawn_s = time.perf_counter() - t1
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(TP_RANKS)]
+        for r in range(TP_RANKS):
+            shards = torch.load(os.path.join(tmp, f"shards{r}.pt"))
+            # compared on the card, free again once the ranks have ended
+            for path, (spec, t, m4) in shards.items():
+                at = ranks[r]["coords"]
+                t, m4 = t.to(DEVICE), m4.to(DEVICE)
+                ref = _slice_of(one["params"][path], spec, at).to(DEVICE)
+                m1 = _slice_of(one["m"][path], spec, at).to(DEVICE)
+                d = t.float() - ref.float()
+                far = torch.abs(d) > TP_PARAM_ATOL
+                apart_leaf[path] += int(torch.sum(far))
+                apart += int(torch.sum(far))
+                worst = max(worst, float(torch.max(torch.abs(d))))
+                # the difference left once each side's own u(g) is applied
+                resid = max(resid, float(torch.max(torch.abs(
+                    d + lr * (u(m4) - u(m1))))))
+                g_far = torch.abs(m1[far].double()) / (1 - acfg.b1)
+                if g_far.numel():
+                    g_apart_max = max(g_apart_max, float(g_far.max()))
+                    idx = torch.bucketize(g_far, torch.tensor(
+                        g_edges, dtype=torch.float64, device=DEVICE))
+                    for i, c in enumerate(torch.bincount(
+                            idx, minlength=len(g_hist)).tolist()):
+                        g_hist[i] += c
+                sq[path][0] += float(torch.sum(
+                    (m4.float() - m1.float()) ** 2, dtype=torch.float64))
+                sq[path][1] += float(torch.sum(m1.float() ** 2,
+                                               dtype=torch.float64))
+                n += t.numel()
+            del shards, t, m4, ref, m1, d, far
+    del one["params"], one["m"]
+    torch.cuda.empty_cache()
+    grad_rel = {p: (a / b) ** 0.5 if b > 0 else float(a > 0)
+                for p, (a, b) in sq.items()}
+    r0 = ranks[0]
+    checks = {}
+    checks["tp_loss_4_ranks_vs_1"] = all(
+        abs(r["loss"] - one["loss"]) <= TP_LOSS_RTOL * abs(one["loss"])
+        for r in ranks)
+    checks["tp_grad_norm_4_ranks_vs_1"] = all(
+        abs(r["grad_norm"] - one["grad_norm"])
+        <= TP_LOSS_RTOL * abs(one["grad_norm"]) for r in ranks)
+    checks["tp_grads_per_leaf_4_ranks_vs_1"] = (
+        max(grad_rel.values()) <= TP_GRAD_REL)
+    checks["tp_grad_control_outside"] = (
+        set(one["control_rel"]) == set(grad_rel)
+        and min(one["control_rel"].values()) > TP_GRAD_REL)
+    checks["tp_params_as_their_grads"] = resid <= TP_PARAM_ATOL
+    checks["tp_params_within_lr"] = worst <= TP_PARAM_MAX_LR * lr
+    checks["tp_tokens_equal_one_rank"] = all(
+        torch.equal(r["tokens"], one["tokens"]) for r in ranks)
+    logit_rel = [float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+                 for a, b in zip(r0["logits"], one["logits"])]
+    checks["tp_logits_finite"] = all(
+        bool(torch.isfinite(x).all()) for x in r0["logits"])
+    # (b) memory: the count, and the data-parallel step's floor: its
+    # arguments (the same shards) plus the whole model's params and
+    # gradients, which it gathers and computes whole
+    cfg = tp_cfg(torch.bfloat16)
+    whole = sum(t.numel() * t.element_size() for t in
+                _leaves(SP.params_shape(cfg, SP.fake_mode())))
+    est = tp_count["memory"]["peak_bytes_est"]
+    mem = [{"rank": r["rank"], "peak_bytes": r["bf16_peak_bytes"],
+            "argument_bytes": r["bf16_argument_bytes"],
+            "of_estimate": r["bf16_peak_bytes"] / est,
+            "dp_floor_bytes": r["bf16_argument_bytes"] + 2 * whole,
+            "of_dp_floor": r["bf16_peak_bytes"]
+            / (r["bf16_argument_bytes"] + 2 * whole)} for r in ranks]
+    lo, hi = TP_MEM_BAND
+    checks["tp_memory_in_band"] = all(lo <= m["of_estimate"] <= hi
+                                      for m in mem)
+    checks["tp_memory_below_dp_floor"] = all(m["of_dp_floor"] < 1
+                                             for m in mem)
+    checks["tp_bf16_loss_finite"] = all(np.isfinite(r["bf16_loss"])
+                                        for r in ranks)
+    after = kernel_launches()
+    checks["tp_no_kernel_launch"] = after == before and all(
+        r["launches"] == before or all(v == 0 for v in r["launches"].values())
+        for r in ranks)
+    step_s = [r["step_s"] for r in ranks]
+    print(f"tp: glm4-9b-{TP_LAYERS}l on {TP_RANKS} gloo ranks {TP_MESH}: loss "
+          f"{r0['loss']:.7g} vs one rank {one['loss']:.7g}, grad_norm "
+          f"{r0['grad_norm']:.7g} vs {one['grad_norm']:.7g}; gradients "
+          f"per leaf: worst {max(grad_rel.values()):.3g} relative L2 "
+          f"({max(grad_rel, key=grad_rel.get)}), control's least "
+          f"{min(one['control_rel'].values()):.3g}; params: {apart} of {n} "
+          f"beyond {TP_PARAM_ATOL:g}, max {worst:.3g}, {resid:.3g} once "
+          f"each side's own gradient is applied", flush=True)
+    print(f"tp: |g| of the {apart} params beyond {TP_PARAM_ATOL:g}, by "
+          f"edges {g_edges}: {g_hist}, largest {g_apart_max:.3g}; the "
+          f"leaves that hold them: {dict((+apart_leaf).most_common(8))}; "
+          f"tokens equal {checks['tp_tokens_equal_one_rank']}, logits "
+          f"{max(logit_rel):.3g} of the largest; bfloat16 peak "
+          f"{[round(m['of_estimate'], 4) for m in mem]} of op_cost's "
+          f"{est} B, {[round(m['of_dp_floor'], 4) for m in mem]} of the "
+          f"data-parallel floor (whole params + grads {2 * whole} B + "
+          f"arguments)", flush=True)
+    print(f"tp: FP32 train step {max(step_s) * 1e3:.1f} ms on {TP_RANKS} "
+          f"ranks (gloo's host-staged collectives, not NVLink's), "
+          f"{one['step_s'] * 1e3:.1f} ms on one rank; on {smi}", flush=True)
+    emit("tp", card=smi, arch=TP_ARCH, layers=TP_LAYERS, mesh=TP_MESH,
+         one_rank={k: v for k, v in one.items()
+                   if k not in ("tokens", "logits", "control_rel")},
+         ranks=[{k: v for k, v in r.items() if k not in ("tokens", "logits")}
+                for r in ranks],
+         tokens=one["tokens"].tolist(), logits_rel_to_one_rank=logit_rel,
+         params_apart=apart, params_n=n, params_max_abs=worst,
+         params_resid_after_own_grads=resid, grad_rel=grad_rel,
+         grad_control_rel=one["control_rel"], params_apart_g_edges=g_edges,
+         params_apart_g_hist=g_hist, params_apart_g_max=g_apart_max,
+         params_apart_leaves=dict(+apart_leaf),
+         memory=mem, op_cost_peak_bytes_est=est, whole_params_bytes=whole,
+         gates=dict(loss_rtol=TP_LOSS_RTOL, grad_rel=TP_GRAD_REL,
+                    param_atol=TP_PARAM_ATOL,
+                    param_max_lr=TP_PARAM_MAX_LR,
+                    mem_band=TP_MEM_BAND),
+         spawn_s=spawn_s, launches_before=before, launches_after=after,
+         seconds=time.perf_counter() - t0, checks=checks,
+         ok=all(checks.values()))
+    require(all(checks.values()), f"tp phase failed its checks: "
+            f"{ {k: v for k, v in checks.items() if not v} }")
+
+
+def _leaves(tree):
+    from repro_torch.core import tree as T
+    return T.leaves(tree)
 
 
 def main() -> int:
@@ -4136,7 +4607,8 @@ def main() -> int:
             phase_static()
             phase_train()
             phase_distributed()
-            phase_dryrun(worker)
+            tp_count = phase_dryrun(worker)
+            phase_tp(tp_count)
         finally:
             if worker[0].poll() is None:
                 worker[0].kill()

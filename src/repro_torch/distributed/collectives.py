@@ -11,6 +11,16 @@ axis lives on the `model` axis; each rank runs a local online softmax
 against its cache slice and the ranks combine with one tiny all-reduce of
 (m, l, acc) -- a distributed flash-decode. The relaxed-LAMP threshold needs
 the global max of s = y + log|y|, which is one more all-reduce (MAX).
+
+The tensor-parallel steps (``launch.steps.make_sharded_*_step`` on the
+transformer families) compute on the params' shards with these
+autograd-aware pieces: the Megatron pair `copy_to_axis` /
+`reduce_over_axis`; `gather_over_axis`, the FSDP gather of a layer's leaf
+over one axis, whose backward is a reduce-scatter (SUM); `gather_parts`,
+an all-gather of activations over `model` whose parts may differ in size
+(the heads of an uneven split); and the vocabulary-parallel embedding
+lookup and cross entropy. Every one uses only collectives that gloo takes
+on CUDA tensors: all-reduce, both all-gathers and reduce-scatter.
 """
 
 from __future__ import annotations
@@ -155,11 +165,188 @@ def reduce_over_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return _ReduceOverAxis.apply(x, mesh, axis)
 
 
-def axis_mean(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """The mean of t over the mesh axes `axes` (a new tensor), summed one
-    axis after another."""
-    out = t.detach().clone()
+def axis_sum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of t over the mesh axes `axes` (a new tensor, no gradient),
+    one axis after another."""
+    out = t.detach().clone(memory_format=torch.contiguous_format)
     for a in axes:
         _all_reduce(out, mesh, a, dist.ReduceOp.SUM)
+    return out
+
+
+def axis_mean(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The mean of t over the mesh axes `axes` (`axis_sum` over their
+    size)."""
+    out = axis_sum(t, mesh, axes)
     n = math.prod(SH.axis_size(mesh, a) for a in axes)
     return out / n if n > 1 else out
+
+
+# ------------------------------------------------- tensor-parallel pieces
+
+def _reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int):
+    """The SUM of t over `axis`, this rank's contiguous part along dim."""
+    n = SH.axis_size(mesh, axis)
+    if n == 1:
+        return t
+    group = SH.axis_group(mesh, axis)
+    tt = t.movedim(dim, 0).contiguous()
+    r, rest = tt.shape[0] // n, tuple(tt.shape[1:])
+    out = tt.new_empty((r,) + rest)
+    _REDUCE_SCATTER(out, tt, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim)
+
+
+# reduce_scatter_tensor / all_gather_into_tensor are deprecated in favour
+# of the *_single names where those exist
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+def all_gather(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The ranks' t along `axis` concatenated along dim, in rank order
+    (no gradient)."""
+    n = SH.axis_size(mesh, axis)
+    if n == 1:
+        return t
+    group = SH.axis_group(mesh, axis)
+    tt = t.movedim(dim, 0).contiguous()
+    r, rest = tt.shape[0], tuple(tt.shape[1:])
+    out = tt.new_empty((n * r,) + rest)
+    _ALL_GATHER(out, tt, group=group)
+    return out.movedim(0, dim)
+
+
+class _GatherOverAxis(torch.autograd.Function):
+    """All-gather along dim forward; the backward is a reduce-scatter (SUM)
+    when the ranks use the gathered tensor for different parts of the work
+    (their gradients are partial), this rank's part of the gradient when
+    every rank does the same work with it (`redundant`)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, redundant):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.redundant = mesh, axis, dim, redundant
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.redundant:
+            size = g.shape[ctx.dim] // SH.axis_size(ctx.mesh, ctx.axis)
+            i = SH.axis_index(ctx.mesh, ctx.axis)
+            return g.narrow(ctx.dim, i * size, size), None, None, None, None
+        return _reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), \
+            None, None, None, None
+
+
+def gather_over_axis(x: torch.Tensor, mesh, axis: str, dim: int, *,
+                     redundant: bool = False) -> torch.Tensor:
+    """x gathered over `axis` along dim (the FSDP gather of a leaf's
+    shards); differentiable (`_GatherOverAxis`). Identity on an axis of
+    size 1."""
+    if SH.axis_size(mesh, axis) == 1:
+        return x
+    return _GatherOverAxis.apply(x, mesh, axis, dim, redundant)
+
+
+def gather_parts(x: torch.Tensor, mesh, dim: int, parts) -> torch.Tensor:
+    """The whole of an activation split over `model` along dim: rank r
+    holds the index range parts[r] = (start, stop) (ranges may overlap and
+    differ in length; together they cover 0 .. total). Each index comes
+    from the first rank that holds it. No gradient (the serving steps')."""
+    n = SH.axis_size(mesh, "model")
+    if n == 1:
+        return x
+    width = max(b - a for a, b in parts)
+    if x.shape[dim] < width:
+        pad = list(x.shape)
+        pad[dim] = width - x.shape[dim]
+        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+    both = all_gather(x, mesh, "model", dim)          # n * width along dim
+    total = max(b for _, b in parts)
+    owner = [next(r for r, (a, b) in enumerate(parts) if a <= i < b)
+             for i in range(total)]
+    idx = [owner[i] * width + i - parts[owner[i]][0] for i in range(total)]
+    if idx == list(range(total)):
+        return both.narrow(dim, 0, total)
+    return both.index_select(dim, torch.tensor(idx, device=x.device))
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, start: int,
+                mesh) -> torch.Tensor:
+    """Rows `tokens` of an embedding table split over `model` by vocabulary:
+    this rank holds rows start .. start + len(table); a token outside them
+    looks up zeros, and the ranks' lookups are summed over `model`."""
+    local = tokens - start
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(mine, local, torch.zeros_like(local))]
+    rows = rows * mine[..., None].to(rows.dtype)
+    return reduce_over_axis(rows, mesh, "model")
+
+
+class _MaxOverAxis(torch.autograd.Function):
+    """All-reduce (MAX) forward, no gradient (a softmax's shift)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _all_reduce(x.contiguous().clone(), mesh, axis,
+                           dist.ReduceOp.MAX)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,
+                       start: int, mesh) -> torch.Tensor:
+    """The mean negative log-likelihood of `targets` under logits split
+    over `model` by vocabulary (this rank's columns start .. start +
+    logits.shape[-1]): the row max by an all-reduce (MAX), the sum of
+    exponentials and the target's logit by all-reduces (SUM), each over
+    `model`. Differentiable in `logits`."""
+    lf = logits.float()
+    m = _MaxOverAxis.apply(torch.amax(lf.detach(), dim=-1), mesh, "model")
+    sumexp = reduce_over_axis(torch.sum(torch.exp(lf - m[..., None]), dim=-1),
+                              mesh, "model")
+    local = targets.long() - start
+    mine = (local >= 0) & (local < lf.shape[-1])
+    picked = torch.gather(lf, -1, torch.where(mine, local, 0)[..., None])
+    tgt = reduce_over_axis(picked[..., 0] * mine.to(lf.dtype), mesh, "model")
+    return torch.mean(torch.log(sumexp) + m - tgt)
+
+
+def take(t: torch.Tensor, spec, mesh, *, dim: Optional[int] = None,
+         ranges=None, redundant: bool = False) -> torch.Tensor:
+    """This rank's piece of a leaf from its shard t, placed by `spec` (one
+    entry a dimension of t, ``sharding.spec_of``): the leaf whole over
+    `data` (gathered, the batch's partial gradients reduce-scattered back)
+    and, along `dim`, the index ranges `ranges` concatenated; with dim None
+    the whole leaf. The ranges come from the rank's own shard when they are
+    exactly it; otherwise the leaf is gathered over `model` first (a unit,
+    a head or a gate / up pair, cut by the contiguous shards), as is any
+    other dimension placed over `model`. `redundant`: every rank of
+    `model` does the same work with the gathered leaf (its gradient is
+    then taken, not summed, over `model`)."""
+    for d, ax in enumerate(spec):
+        if ax == "data":
+            t = gather_over_axis(t, mesh, "data", d)
+    for d, ax in enumerate(spec):
+        if ax != "model":
+            continue
+        size, i = t.shape[d], SH.axis_index(mesh, "model")
+        if d == dim and list(ranges) == [(i * size, (i + 1) * size)]:
+            return t
+        t = gather_over_axis(t, mesh, "model", d, redundant=redundant)
+    if dim is None:
+        return t
+    merged = []
+    for a, b in ranges:
+        if merged and merged[-1][1] == a:
+            merged[-1] = (merged[-1][0], b)
+        else:
+            merged.append((a, b))
+    if merged == [(0, t.shape[dim])]:
+        return t
+    pieces = [t.narrow(dim, a, b - a) for a, b in merged]
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)

@@ -211,7 +211,8 @@ def opt_specs(opt_like: AdamWState, pspecs) -> AdamWState:
 
 # ------------------------------------------------------------ placements
 
-def _axes_of(entry) -> Tuple[str, ...]:
+def axes_of(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, major to minor."""
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
@@ -226,7 +227,7 @@ def placements(spec, mesh) -> list:
     names = list(mesh.mesh_dim_names)
     out: list = [Replicate()] * len(names)
     for dim, entry in enumerate(spec):
-        idx = [names.index(a) for a in _axes_of(entry)]
+        idx = [names.index(a) for a in axes_of(entry)]
         if idx != sorted(idx):
             raise ValueError(f"spec entry {entry!r} is not in the mesh's "
                              f"axis order {tuple(names)}")
@@ -258,6 +259,20 @@ def gather(tree):
     from torch.distributed.tensor import DTensor
     return T.map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t,
                  tree)
+
+
+def spec_of(t) -> Tuple:
+    """The spec of a DTensor's placements (one entry a dimension: the axis
+    name, a tuple of them major to minor, or None); all None for any other
+    tensor."""
+    from torch.distributed.tensor import DTensor
+    spec: List[Any] = [None] * t.ndim
+    if isinstance(t, DTensor):
+        for name, p in zip(t.device_mesh.mesh_dim_names, t.placements):
+            if p.is_shard():
+                e = spec[p.dim]
+                spec[p.dim] = name if e is None else axes_of(e) + (name,)
+    return tuple(spec)
 
 
 def to_local(t):

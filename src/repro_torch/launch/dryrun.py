@@ -24,8 +24,10 @@ into bf16/fp16 and FP32), collectives, roofline terms
 `useful_flops_ratio`. JAX's `lower_s` / `compile_s` become one `trace_s`
 (the cell's wall time: specs, placement and the counted step), and its
 `xla_*_raw_loopbody_once` keys have no counterpart (a Python loop counts
-every pass). The steps are the port's: data-parallel but for the dense
-families' decode, so per-rank memory holds the whole gathered model.
+every pass), and `collective_max` adds each category's largest single
+result. The steps are the port's: tensor-parallel over `model` with FSDP
+over `data` for the transformer families, data-parallel (the whole model
+gathered a rank) for rwkv6, hymba and whisper.
 """
 
 from __future__ import annotations
@@ -164,6 +166,7 @@ def count_step(cfg, shp, mesh, overrides: dict | None = None) -> dict:
                     "matmul_argument_bytes_per_device":
                         cost["matmul_argument_bytes"]},
            "collectives": cost["collectives"],
+           "collective_max": cost["collective_max"],
            "roofline": RL.roofline_terms(flops, cost["bytes"],
                                          cost["collective_bytes"],
                                          cost["flops_fp32"])}

@@ -14,7 +14,8 @@ tensors, ``launch.specs``) and counts it with ``hlo_cost``'s definitions:
     step's arguments read once;
   * collective bytes by category (all-gather, all-reduce, reduce-scatter,
     all-to-all, send-recv in place of collective-permute), the
-    result-shape bytes of each ``c10d`` / ``c10d_functional`` op;
+    result-shape bytes of each ``c10d`` / ``c10d_functional`` op, and the
+    largest single result of each category;
   * memory: the live storages over the step, the arguments registered
     first, giving JAX's ``memory_analysis`` record: argument, output,
     temp and alias bytes and their peak;
@@ -88,6 +89,7 @@ class OpCost(TorchDispatchMode):
         self.flops_fp32 = 0.0
         self.bytes = 0.0
         self.coll = {k: 0.0 for k in COLLECTIVES}
+        self.coll_max = {k: 0.0 for k in COLLECTIVES}
         self._live: Dict[int, int] = {}
         self._fin: Dict[int, Any] = {}
         self.live_bytes = 0
@@ -162,7 +164,9 @@ class OpCost(TorchDispatchMode):
                     self._multiplied[key] = self._args[key]
         kind = _collective_kind(func)
         if kind is not None:
-            self.coll[kind] += sum(_nbytes(t) for t in outs)
+            n = sum(_nbytes(t) for t in outs)
+            self.coll[kind] += n
+            self.coll_max[kind] = max(self.coll_max[kind], n)
         rets = func._schema.returns
         if any(r.alias_info is not None and not r.alias_info.is_write
                for r in rets):
@@ -201,6 +205,7 @@ class OpCost(TorchDispatchMode):
             "bytes": self.bytes,
             "collectives": coll,
             "collective_bytes": sum(coll.values()),
+            "collective_max": dict(self.coll_max),
             "matmul_argument_bytes": sum(self._multiplied.values()),
             "memory": {"argument_bytes": arg, "output_bytes": out,
                        "temp_bytes": temp, "alias_bytes": alias,

@@ -9,7 +9,7 @@ casts them to the model's dtype.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -187,12 +187,28 @@ def attention_out(cfg, p, q, k, v, lamp_site: LampSite, *,
     strict rule's counts at random positions, under ``PRNGKey(0)`` (the
     sublayer's use); without it that rule raises, as the JAX package's
     prefill does."""
+    out, rate = attend(cfg, q, k, v, lamp_site, causal=causal,
+                       attn_impl=attn_impl, random_control=random_control)
+    return out @ p["wo"], rate
+
+
+def attend(cfg, q, k, v, lamp_site: LampSite, *, causal: bool = True,
+           attn_impl: str = "auto", random_control: bool = False,
+           kv_index: Optional[torch.Tensor] = None):
+    """`attention_out` before `wo`: q (B, T, Hq, hd) against k, v (B, Tk,
+    Hk, hd), query head i reading KV head i // (Hq // Hk), or KV head
+    kv_index[i] when given (a rank's heads of a split that cuts a query
+    group). Returns ((B, T, Hq * hd) in q's dtype, rate)."""
     B, T = q.shape[:2]
-    n_rep = cfg.n_heads // cfg.n_kv_heads
     dtype, window = q.dtype, cfg.window
     q = q.transpose(1, 2)
-    k = _repeat_kv(k.transpose(1, 2), n_rep)
-    v = _repeat_kv(v.transpose(1, 2), n_rep)
+    if kv_index is None:
+        n_rep = q.shape[1] // k.shape[2]
+        k = _repeat_kv(k.transpose(1, 2), n_rep)
+        v = _repeat_kv(v.transpose(1, 2), n_rep)
+    else:
+        k = k.transpose(1, 2).index_select(1, kv_index)
+        v = v.transpose(1, 2).index_select(1, kv_index)
     if attn_impl == "auto":
         attn_impl = "full" if max(T, k.shape[2]) <= 2048 else "chunked"
     rate = torch.zeros((), dtype=torch.float32, device=q.device)
@@ -222,8 +238,7 @@ def attention_out(cfg, p, q, k, v, lamp_site: LampSite, *,
                                       block=CHUNK_BLOCK, window=window)
     else:
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
-    out = out.transpose(1, 2).reshape(B, T, -1).to(dtype)
-    return out @ p["wo"], rate
+    return out.transpose(1, 2).reshape(B, T, -1).to(dtype), rate
 
 
 def attention_sublayer(cfg, p, x: torch.Tensor, *, positions: torch.Tensor,
@@ -362,9 +377,15 @@ def paged_attention_decode_sublayer(cfg, p, x: torch.Tensor, *, arena_k,
 
 
 def mlp_apply(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    h = x @ p["wi"]
+    return _mlp(cfg, x, p["wi"], p["wo"])
+
+
+def _mlp(cfg, x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor):
+    """The MLP on hidden units wo.shape[0]: wi's columns are those units
+    (gated: their gate columns, then their up columns)."""
+    h = x @ wi
     if cfg.act in ("swiglu", "geglu"):
-        ff = p["wo"].shape[0]
+        ff = wo.shape[0]
         g, u = h[..., :ff].float(), h[..., ff:].float()
         act = F.silu(g) if cfg.act == "swiglu" else F.gelu(g, approximate="tanh")
         h = (act * u).to(x.dtype)
@@ -375,7 +396,7 @@ def mlp_apply(cfg, p, x: torch.Tensor) -> torch.Tensor:
         h = (r * r).to(x.dtype)
     else:
         raise ValueError(f"unknown act {cfg.act!r}")
-    return h @ p["wo"]
+    return h @ wo
 
 
 def embed(cfg, p, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -391,3 +412,212 @@ def embed(cfg, p, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor
 def unembed(cfg, p, x: torch.Tensor) -> torch.Tensor:
     w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
     return x.float() @ w.float()
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the mesh's `model` axis (the sharded steps of
+# ``launch.steps``): each function takes the layer's leaves as this rank's
+# shards `p` with their specs `sp` (``sharding.spec_of``, the stacked
+# layer axis dropped) and runs the rank's share, as XLA's SPMD partitioner
+# runs the JAX package's jitted step over ``param_specs``
+# ---------------------------------------------------------------------------
+
+class TensorParallel(NamedTuple):
+    """A rank's share of the transformer on `mesh`: for each rank of
+    `model`, its query heads, the KV heads they read and its hidden units
+    of the FFN, as (start, stop) ranges, contiguous and as even as the
+    counts allow; `rank` is this rank's index on `model`."""
+    mesh: Any
+    rank: int
+    heads: Tuple[Tuple[int, int], ...]
+    kv: Tuple[Tuple[int, int], ...]
+    ff: Tuple[Tuple[int, int], ...]
+
+    @property
+    def n(self) -> int:
+        return len(self.heads)
+
+
+def _split(total: int, n: int):
+    return tuple((r * total // n, (r + 1) * total // n) for r in range(n))
+
+
+def tensor_parallel(cfg, mesh) -> TensorParallel:
+    """This rank's `TensorParallel` share of cfg's transformer on mesh;
+    `model` may not exceed the heads or the hidden units."""
+    n = SH.axis_size(mesh, "model")
+    if cfg.n_heads < n or cfg.d_ff < n:
+        raise ValueError(f"`model` of {n} needs at least {n} heads and "
+                         f"hidden units, got {cfg.n_heads} and {cfg.d_ff}")
+    G = cfg.n_heads // cfg.n_kv_heads
+    heads = _split(cfg.n_heads, n)
+    return TensorParallel(mesh, SH.axis_index(mesh, "model"), heads,
+                          tuple((a // G, (b - 1) // G + 1) for a, b in heads),
+                          _split(cfg.d_ff, n))
+
+
+def _cols(rng, width: int):
+    return [(rng[0] * width, rng[1] * width)]
+
+
+def kv_index(tp: TensorParallel, cfg, device):
+    """The KV head (counted from the first of the rank's KV heads) that
+    each of the rank's query heads reads, or None where its heads are
+    whole query groups (``attend``'s repeat)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    h0, h1 = tp.heads[tp.rank]
+    if h0 % G == 0 and h1 % G == 0:
+        return None
+    return torch.arange(h0, h1, device=device) // G - tp.kv[tp.rank][0]
+
+
+def project_qkv_tp(cfg, tp: TensorParallel, p, sp, x, positions):
+    """`_project_qkv` for the rank's query heads and the KV heads they
+    read: q (B, T, Hq_r, hd), k, v (B, T, Hk_r, hd). x is replicated over
+    `model` (its gradient summed over it: `copy_to_axis`); the qk norm
+    weights' gradients, partial a rank, are summed too."""
+    B, T, _ = x.shape
+    hd, mesh = cfg.hd, tp.mesh
+    h = C.copy_to_axis(x, mesh, "model")
+    hq, hk = tp.heads[tp.rank], tp.kv[tp.rank]
+    q = h @ C.take(p["wq"], sp["wq"], mesh, dim=1, ranges=_cols(hq, hd))
+    k = h @ C.take(p["wk"], sp["wk"], mesh, dim=1, ranges=_cols(hk, hd))
+    v = h @ C.take(p["wv"], sp["wv"], mesh, dim=1, ranges=_cols(hk, hd))
+    q = q.reshape(B, T, hq[1] - hq[0], hd)
+    k = k.reshape(B, T, hk[1] - hk[0], hd)
+    v = v.reshape(B, T, hk[1] - hk[0], hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, C.copy_to_axis(
+            C.take(p["qn_w"], sp["qn_w"], mesh), mesh, "model"))
+        k = rms_norm(k, C.copy_to_axis(
+            C.take(p["kn_w"], sp["kn_w"], mesh), mesh, "model"))
+    if cfg.pos == "rope":
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    return q, k, v
+
+
+def out_proj_tp(tp: TensorParallel, cfg, p, sp, out):
+    """The row-parallel `wo` of the rank's heads' outputs (B, T, Hq_r *
+    hd), summed over `model`."""
+    wo = C.take(p["wo"], sp["wo"], tp.mesh, dim=0,
+                ranges=_cols(tp.heads[tp.rank], cfg.hd))
+    return C.reduce_over_axis(out @ wo, tp.mesh, "model")
+
+
+def attention_sublayer_tp(cfg, tp: TensorParallel, p, sp, x, *, positions,
+                          lamp_site: LampSite, attn_impl: str = "auto"):
+    """`attention_sublayer` on the rank's heads (LAMP's y_low, selection
+    and FP32 recompute are per head: no communication), then the
+    row-parallel `wo`. Returns (out, the recompute rate of the rank's
+    heads weighted by their share of all heads)."""
+    q, k, v = project_qkv_tp(cfg, tp, p, sp, x, positions)
+    out, rate = attend(cfg, q, k, v, lamp_site, attn_impl=attn_impl,
+                       random_control=True,
+                       kv_index=kv_index(tp, cfg, x.device))
+    h0, h1 = tp.heads[tp.rank]
+    return out_proj_tp(tp, cfg, p, sp, out), rate * ((h1 - h0) / cfg.n_heads)
+
+
+def attention_decode_tp(cfg, tp: TensorParallel, p, sp, x, *, cache_k,
+                        cache_v, length, lamp_site: LampSite,
+                        seq_split: bool):
+    """`attention_decode_sublayer` on the rank's heads, against its cache
+    shards cache_k / cache_v (B, S_l, Hkv, hd), written in place. The new
+    token's K/V heads are gathered over `model` (B x Hkv x hd) for the
+    write. With `seq_split` the caches' sequence is split over `model`:
+    the query heads are gathered too (B x H x hd), the rank whose slice
+    holds position length[b] writes row b, attention is
+    ``collectives.sp_decode_attention`` over all heads, and the rank keeps
+    its heads' outputs; else the rank writes every row of its whole
+    caches and attends with its heads. Then the row-parallel `wo`."""
+    B, mesh, hd = x.shape[0], tp.mesh, cfg.hd
+    q, k, v = project_qkv_tp(cfg, tp, p, sp, x, length[:, None])
+    k = C.gather_parts(k, mesh, 2, tp.kv)[:, 0]
+    v = C.gather_parts(v, mesh, 2, tp.kv)[:, 0]
+    h0, h1 = tp.heads[tp.rank]
+    if seq_split:
+        first = tp.rank * cache_k.shape[1]
+        _write_new(cache_k, k, length - first)
+        _write_new(cache_v, v, length - first)
+        out = C.sp_decode_attention(
+            mesh, C.gather_parts(q, mesh, 2, tp.heads).transpose(1, 2),
+            cache_k.movedim(2, 1), cache_v.movedim(2, 1), length + 1,
+            mu=lamp_site.mu if lamp_site.enabled else 23, tau=lamp_site.tau,
+            lamp=lamp_site.enabled, window=cfg.window)[:, h0:h1]
+    else:
+        _write_new(cache_k, k, length)
+        _write_new(cache_v, v, length)
+        k0, k1 = tp.kv[tp.rank]
+        kh, vh = (c.narrow(2, k0, k1 - k0).movedim(2, 1)
+                  for c in (cache_k, cache_v))
+        idx = kv_index(tp, cfg, x.device)
+        if idx is None:
+            G = cfg.n_heads // cfg.n_kv_heads
+            kh, vh = _repeat_kv(kh, G), _repeat_kv(vh, G)
+        else:
+            kh, vh = kh.index_select(1, idx), vh.index_select(1, idx)
+        out, _ = A.decode_attention_lamp(q.transpose(1, 2), kh, vh,
+                                         length + 1, lamp_site,
+                                         window=cfg.window)
+    out = out.transpose(1, 2).reshape(B, 1, (h1 - h0) * hd).to(x.dtype)
+    return out_proj_tp(tp, cfg, p, sp, out)
+
+
+def mlp_apply_tp(cfg, tp: TensorParallel, p, sp, x):
+    """`mlp_apply` on the rank's hidden units: `wi` column-parallel (a
+    gated MLP's gate and up columns of those units), `wo` row-parallel,
+    summed over `model`."""
+    f0, f1 = tp.ff[tp.rank]
+    ff, mesh = cfg.d_ff, tp.mesh
+    ranges = [(f0, f1)]
+    if cfg.act in ("swiglu", "geglu"):
+        ranges.append((ff + f0, ff + f1))
+    wi = C.take(p["wi"], sp["wi"], mesh, dim=1, ranges=ranges)
+    wo = C.take(p["wo"], sp["wo"], mesh, dim=0, ranges=[(f0, f1)])
+    y = _mlp(cfg, C.copy_to_axis(x, mesh, "model"), wi, wo)
+    return C.reduce_over_axis(y, mesh, "model")
+
+
+def split_over_model(spec, dim: int, mesh) -> bool:
+    """Whether a leaf placed by `spec` has its dim split over a `model`
+    axis > 1 (a table by vocabulary, `mm_proj` by columns)."""
+    return SH.axis_size(mesh, "model") > 1 and spec[dim] == "model"
+
+
+def _vocab_rows(cfg, tp: TensorParallel):
+    size = cfg.vocab // tp.n
+    return [(tp.rank * size, (tp.rank + 1) * size)]
+
+
+def embed_tp(cfg, tp: TensorParallel, p, sp, tokens, positions):
+    """`embed` with `tok` split by vocabulary over `model` where its
+    spec puts it there (``collectives.vocab_embed``), else whole."""
+    mesh = tp.mesh
+    if split_over_model(sp["tok"], 0, mesh):
+        rows = _vocab_rows(cfg, tp)
+        table = C.take(p["tok"], sp["tok"], mesh, dim=0, ranges=rows)
+        x = C.vocab_embed(table, tokens, rows[0][0], mesh)
+    else:
+        x = C.take(p["tok"], sp["tok"], mesh, redundant=True)[tokens]
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    if cfg.pos == "learned":
+        pos = C.take(p["pos"], sp["pos"], mesh, redundant=True)
+        x = x + pos[torch.clamp(positions, max=pos.shape[0] - 1)]
+    return x
+
+
+def unembed_tp(cfg, tp: TensorParallel, p, sp, x):
+    """(FP32 logits, first vocabulary index): this rank's vocabulary
+    columns where the table is split by vocabulary over `model`, else all
+    of them from 0."""
+    mesh = tp.mesh
+    name, dim = ("tok", 0) if cfg.tie_embeddings else ("unembed", 1)
+    if not split_over_model(sp[name], dim, mesh):
+        w = C.take(p[name], sp[name], mesh, redundant=True)
+        return unembed(cfg, {name: w}, x), 0
+    rows = _vocab_rows(cfg, tp)
+    w = C.take(p[name], sp[name], mesh, dim=dim, ranges=rows)
+    w = w.T if cfg.tie_embeddings else w
+    return C.copy_to_axis(x, mesh, "model").float() @ w.float(), rows[0][0]

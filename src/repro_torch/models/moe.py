@@ -234,7 +234,7 @@ def _replicated(w, mesh):
 
 
 def moe_apply_ep(cfg, p, x: torch.Tensor, *, lamp_site: LampSite, mesh,
-                 capacity_mult: float = 2.0
+                 capacity_mult: float = 2.0, local_experts: bool = False
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Expert-parallel MoE (port of the JAX package's ``shard_map`` body):
     no token movement at all.
@@ -248,7 +248,8 @@ def moe_apply_ep(cfg, p, x: torch.Tensor, *, lamp_site: LampSite, mesh,
     with one all-reduce. Returns (y (B_l, T, d) in x's dtype, {
     router_lamp_rate and kept_frac of this rank's tokens, moe_aux_loss
     0}). Differentiable: x's and the router's gradients are summed over
-    `model`.
+    `model`. With `local_experts` p's expert leaves are already the rank's
+    E / n_model experts, whole (the tensor-parallel steps' layer leaves).
     """
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -273,9 +274,12 @@ def moe_apply_ep(cfg, p, x: torch.Tensor, *, lamp_site: LampSite, mesh,
     # a spare slot `cap` that is cut off
     buf = torch.zeros((E_l, cap + 1, d), dtype=x.dtype, device=dev)
     buf[lid_c, torch.where(keep, pos, cap)] = x2d[tok_idx]
-    out_buf = _experts(cfg, buf[:, :cap],
-                       _local_experts(p["we_in"], mesh, E_l),
-                       _local_experts(p["we_out"], mesh, E_l))
+    if local_experts:
+        w_in, w_out = p["we_in"], p["we_out"]
+    else:
+        w_in = _local_experts(p["we_in"], mesh, E_l)
+        w_out = _local_experts(p["we_out"], mesh, E_l)
+    out_buf = _experts(cfg, buf[:, :cap], w_in, w_out)
     y_tok = out_buf[lid_c, torch.clamp(pos, 0, cap - 1)] * \
         keep[:, None].to(out_buf.dtype)
     y = C.reduce_over_axis(_combine(y_tok, top_p, Tl, k), mesh, "model")

@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.core import tree as T
 from repro_torch.core.policy import LampSite
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as SH
 
 from . import layers as LY
@@ -357,6 +358,234 @@ def decode_step(cfg, params, cache: Dict[str, Any], tokens: torch.Tensor, *,
         logits = SH.from_rows(logits, mesh, B)
     return logits, {"k": cache["k"], "v": cache["v"],
                     "length": cache["length"] + 1}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over `model` (``launch.steps``' sharded steps): the
+# rank's shards of the params with their specs (``sharding.spec_of``),
+# each layer's leaves taken as ``layers``' *_tp functions need them
+# ---------------------------------------------------------------------------
+
+def _layer_specs(specs):
+    """The block specs without the stacked layer axis."""
+    return T.map(lambda sp: tuple(sp[1:]), specs["blocks"])
+
+
+def expert_parallel(cfg, tp: LY.TensorParallel, rows_split: bool) -> bool:
+    """Whether the MoE runs expert-parallel (``moe.moe_apply_ep``), as the
+    JAX package's `moe_dispatch` decides under a mesh: `model` > 1 divides
+    the experts and the batch is split over the batch axes."""
+    return (cfg.family == "moe" and tp.n > 1 and
+            cfg.n_experts % tp.n == 0 and rows_split)
+
+
+def _ffn_tp(cfg, tp, p, sp, h, r_site: LampSite, ep: bool, *,
+            dropless: bool = False, num_groups: int = 1):
+    """(the block's FFN on the rank's share, the MoE's metrics): the MLP
+    split over `model`; the MoE expert-parallel on the rank's experts, or
+    else whole on every rank of `model`."""
+    if cfg.family != "moe":
+        return LY.mlp_apply_tp(cfg, tp, p["mlp"], sp["mlp"], h), {}
+    p, sp, mesh = p["moe"], sp["moe"], tp.mesh
+    if ep:
+        E_l = cfg.n_experts // tp.n
+        own = [(tp.rank * E_l, (tp.rank + 1) * E_l)]
+        w = {"router": C.take(p["router"], sp["router"], mesh),
+             "we_in": C.take(p["we_in"], sp["we_in"], mesh, dim=0,
+                             ranges=own),
+             "we_out": C.take(p["we_out"], sp["we_out"], mesh, dim=0,
+                              ranges=own)}
+        return MOE.moe_apply_ep(cfg, w, h, lamp_site=r_site, mesh=mesh,
+                                local_experts=True)
+    w = {k: C.take(p[k], sp[k], mesh, redundant=True) for k in p}
+    return MOE.moe_apply(cfg, w, h, lamp_site=r_site, num_groups=num_groups,
+                         dropless=dropless)
+
+
+def _norms(tp, p, sp):
+    return {k: C.take(p[k], sp[k], tp.mesh, redundant=True)
+            for k in p if k.startswith("ln")}
+
+
+def block_apply_tp(cfg, tp, p, sp, x, ctx: BlockCtx, ep: bool):
+    """`block_apply` on the rank's share of layer leaves p (specs sp)."""
+    norms = _norms(tp, p, sp)
+    h = LY.apply_norm(cfg, x, norms, "ln1")
+    a, rate = LY.attention_sublayer_tp(
+        cfg, tp, p["attn"], sp["attn"], h, positions=ctx.positions,
+        lamp_site=ctx.lamp_kq, attn_impl=ctx.attn_impl)
+    x = x + a
+    h = LY.apply_norm(cfg, x, norms, "ln2")
+    m, metrics = _ffn_tp(cfg, tp, p, sp, h, ctx.lamp_router, ep,
+                         num_groups=ctx.moe_groups)
+    return x + m, {"attn_lamp_rate": rate, **metrics}
+
+
+def _embed_inputs_tp(cfg, tp, params, specs, tokens, image_embeds):
+    """`_embed_inputs` on the rank's shards: llava's `mm_proj`
+    column-parallel, its outputs gathered over `model`."""
+    S, dev, mesh = tokens.shape[1], tokens.device, tp.mesh
+    if cfg.family != "llava":
+        positions = torch.arange(S, device=dev)
+        return LY.embed_tp(cfg, tp, params["embed"], specs["embed"],
+                           tokens.long(), positions), positions
+    if image_embeds is None:
+        raise ValueError("llava forward requires image_embeds")
+    P = image_embeds.shape[1]
+    w, sp = params["mm_proj"], specs["mm_proj"]
+    img = image_embeds.to(LY.dtype_of(cfg))
+    if LY.split_over_model(sp, 1, mesh):
+        size = cfg.d_model // tp.n
+        w = C.take(w, sp, mesh, dim=1,
+                   ranges=[(tp.rank * size, (tp.rank + 1) * size)])
+        img = C.gather_over_axis(img @ w, mesh, "model", 2, redundant=True)
+    else:
+        img = img @ C.take(w, sp, mesh, redundant=True)
+    positions = torch.arange(P + S, device=dev)
+    x = LY.embed_tp(cfg, tp, params["embed"], specs["embed"], tokens.long(),
+                    positions[P:])
+    return torch.cat([img, x], dim=1), positions
+
+
+def _final_norm_tp(cfg, tp, params, specs, x):
+    top = {k: params[k] for k in ("lnf_w", "lnf_b") if k in params}
+    return LY.apply_norm(cfg, x, _norms(tp, top, specs), "lnf")
+
+
+def forward_tp(cfg, tp: LY.TensorParallel, params, specs, tokens, *,
+               image_embeds=None, use_lamp: bool = False,
+               attn_impl: str = "auto", remat: bool = False,
+               moe_groups: int = 1):
+    """`forward` on the rank's shards of the params (DTensors' local
+    tensors, placed as `specs` say) and its batch rows, with every layer's
+    leaves taken inside the (checkpointed) layer, so only one layer is
+    whole over `data` at a time. Returns (FP32 logits of the rank's
+    vocabulary columns, the first of them, aux): all columns from 0 where
+    the table is not split by vocabulary. aux is the rank's rows' (the
+    attention recompute rate summed over `model` from each rank's heads'
+    share)."""
+    check_family(cfg)
+    x, positions = _embed_inputs_tp(cfg, tp, params, specs, tokens,
+                                    image_embeds)
+    ctx = _ctx(cfg, positions, use_lamp, attn_impl, moe_groups)
+    ep = expert_parallel(cfg, tp, True)
+    lsp = _layer_specs(specs)
+    auxes = []
+    for l in range(cfg.n_layers):
+        x, aux = LY.remat_call(remat, block_apply_tp, cfg, tp,
+                               layer_params(params["blocks"], l), lsp, x,
+                               ctx, ep)
+        auxes.append(aux)
+    aux = {k: torch.mean(torch.stack([a[k] for a in auxes])) for k in auxes[0]}
+    logits, v0 = LY.unembed_tp(cfg, tp, params["embed"], specs["embed"],
+                               _final_norm_tp(cfg, tp, params, specs, x))
+    aux["attn_lamp_rate"] = C.reduce_over_axis(
+        aux["attn_lamp_rate"].detach(), tp.mesh, "model")
+    return logits, v0, aux
+
+
+def loss_fn_tp(cfg, tp: LY.TensorParallel, params, specs, batch, *,
+               use_lamp: bool = False, attn_impl: str = "auto",
+               remat: bool = True, moe_groups: int = 1):
+    """`loss_fn` on the rank's shards and batch rows: the vocabulary-
+    parallel cross entropy (``collectives.vocab_parallel_nll``) where the
+    logits are split by vocabulary. Returns (the rank's loss, metrics
+    averaged over the batch axes); the step averages the loss over them."""
+    tokens = batch["tokens"]
+    logits, v0, aux = forward_tp(cfg, tp, params, specs, tokens,
+                                 image_embeds=batch.get("image_embeds"),
+                                 use_lamp=use_lamp, attn_impl=attn_impl,
+                                 remat=remat, moe_groups=moe_groups)
+    if cfg.family == "llava":
+        logits = logits[:, batch["image_embeds"].shape[1]:]
+    if logits.shape[-1] < cfg.vocab:
+        loss = C.vocab_parallel_nll(logits[:, :-1], tokens[:, 1:], v0,
+                                    tp.mesh)
+    else:
+        loss = next_token_nll(logits, tokens)
+    del logits
+    if cfg.family == "moe":
+        loss = loss + 0.01 * aux["moe_aux_loss"]
+    baxes = SH.batch_axes(tp.mesh)
+    return loss, {k: C.axis_mean(v, tp.mesh, baxes)
+                  for k, v in {"loss": loss, **aux}.items()}
+
+
+def _logits_tp(cfg, tp, params, specs, x):
+    """The final norm and the logits of x, the vocabulary gathered over
+    `model` (no gradient)."""
+    logits, _ = LY.unembed_tp(cfg, tp, params["embed"], specs["embed"],
+                              _final_norm_tp(cfg, tp, params, specs, x))
+    if logits.shape[-1] < cfg.vocab:
+        logits = C.all_gather(logits, tp.mesh, "model", -1)
+    return logits
+
+
+def prefill_tp(cfg, tp: LY.TensorParallel, params, specs, tokens, cache_k,
+               cache_v, *, first: int, rows_split: bool,
+               image_embeds=None, use_lamp: bool = True,
+               attn_impl: str = "auto", moe_groups: int = 1):
+    """`prefill` on the rank's shards, batch rows and cache shards cache_k
+    / cache_v (L, B_r, S_l, Hkv, hd) holding positions first .. first +
+    S_l: each layer's K/V heads are gathered over `model` and the rank
+    writes the prompt's positions in its slice, in place. Returns the
+    last position's logits (B_r, 1, V), the vocabulary gathered."""
+    check_family(cfg)
+    x, positions = _embed_inputs_tp(cfg, tp, params, specs, tokens,
+                                    image_embeds)
+    T_, S_l, mesh = x.shape[1], cache_k.shape[2], tp.mesh
+    n_w = min(max(T_ - first, 0), S_l)
+    site, r_site = LY.kq_site(cfg, use_lamp), _router_site(cfg, use_lamp)
+    ep = expert_parallel(cfg, tp, rows_split)
+    lsp = _layer_specs(specs)
+    for l in range(cfg.n_layers):
+        p_l = layer_params(params["blocks"], l)
+        norms = _norms(tp, p_l, lsp)
+        h = LY.apply_norm(cfg, x, norms, "ln1")
+        q, k, v = LY.project_qkv_tp(cfg, tp, p_l["attn"], lsp["attn"], h,
+                                    positions)
+        for c, t in ((cache_k, k), (cache_v, v)):
+            whole = C.gather_parts(t, mesh, 2, tp.kv)
+            c[l, :, :n_w] = whole[:, first:first + n_w].to(c.dtype)
+        out, _ = LY.attend(cfg, q, k, v, site, attn_impl=attn_impl,
+                           kv_index=LY.kv_index(tp, cfg, x.device))
+        x = x + LY.out_proj_tp(tp, cfg, p_l["attn"], lsp["attn"], out)
+        h = LY.apply_norm(cfg, x, norms, "ln2")
+        m, _ = _ffn_tp(cfg, tp, p_l, lsp, h, r_site, ep,
+                       num_groups=moe_groups)
+        x = x + m
+    return _logits_tp(cfg, tp, params, specs, x[:, -1:])
+
+
+def decode_step_tp(cfg, tp: LY.TensorParallel, params, specs, cache_k,
+                   cache_v, length, tokens, *, seq_split: bool,
+                   use_lamp: bool = True, moe_dropless: bool = True,
+                   moe_groups: int = 1):
+    """`decode_step` on the rank's shards, batch rows (tokens (B_r, 1),
+    length (B_r,)) and cache shards (L, B_r, S_l, Hkv, hd), written in
+    place (``layers.attention_decode_tp``; `seq_split`: the sequence split
+    over `model`). The MoE runs expert-parallel where `model` divides the
+    experts (its expert leaves gathered over `data` a layer at a time).
+    Returns the logits (B_r, 1, V), the vocabulary gathered."""
+    check_family(cfg)
+    x = LY.embed_tp(cfg, tp, params["embed"], specs["embed"], tokens.long(),
+                    length.long()[:, None])
+    site, r_site = LY.kq_site(cfg, use_lamp), _router_site(cfg, use_lamp)
+    ep = expert_parallel(cfg, tp, True)
+    lsp = _layer_specs(specs)
+    for l in range(cfg.n_layers):
+        p_l = layer_params(params["blocks"], l)
+        norms = _norms(tp, p_l, lsp)
+        h = LY.apply_norm(cfg, x, norms, "ln1")
+        x = x + LY.attention_decode_tp(
+            cfg, tp, p_l["attn"], lsp["attn"], h, cache_k=cache_k[l],
+            cache_v=cache_v[l], length=length, lamp_site=site,
+            seq_split=seq_split)
+        h = LY.apply_norm(cfg, x, norms, "ln2")
+        m, _ = _ffn_tp(cfg, tp, p_l, lsp, h, r_site, ep,
+                       dropless=moe_dropless, num_groups=moe_groups)
+        x = x + m
+    return _logits_tp(cfg, tp, params, specs, x)
 
 
 def _last_pad(valid_tok: torch.Tensor):

@@ -45,14 +45,37 @@ def init_state(params) -> AdamWState:
                       m=T.map(zeros, params), v=T.map(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over the leaves of each leaf's sum of squares."""
+def global_norm(tree, shard_axes=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum over the leaves of each leaf's sum of squares.
+
+    With `shard_axes` (a tuple of mesh axis names for each leaf of `tree`,
+    in its order) the leaves are this rank's shards on `mesh`: each leaf's
+    sum is added over the ranks of the axes it is split over, one
+    all-reduce (SUM) an axis for all leaves; over an axis it is replicated
+    on, it is counted once."""
     sq = [torch.sum(torch.square(x.float())) for x in T.leaves(tree)]
+    if shard_axes is not None:
+        import torch.distributed as dist
+        names = [a for a in mesh.mesh_dim_names
+                 if any(a in axes for axes in shard_axes)]
+        vec = torch.stack(sq)
+        for a in names:
+            if mesh.get_group(a).size() == 1:
+                continue
+            on = torch.tensor([a in axes for axes in shard_axes],
+                              device=vec.device)
+            part = torch.where(on, vec, torch.zeros_like(vec))
+            dist.all_reduce(part, group=mesh.get_group(a))
+            vec = torch.where(on, part, vec)
+        sq = list(vec.unbind())
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
-def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, shard_axes=None,
+                        mesh=None) -> Tuple[Any, torch.Tensor]:
+    """`grads` scaled by min(1, max_norm / their global norm), and the
+    norm (`global_norm`'s `shard_axes` / `mesh` for a rank's shards)."""
+    norm = global_norm(grads, shard_axes, mesh)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return T.map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -96,13 +119,32 @@ def update(cfg: AdamWConfig, params, grads, state: AdamWState,
                         + cfg.weight_decay * pf)
         return pf.to(p.dtype), m, v
 
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
+    out = [_chunked(upd, p, g, m, v) for p, g, m, v in zip(
         T.leaves(params), T.leaves(grads), T.leaves(state.m),
         T.leaves(state.v))]
     new_p = T.unflatten(params, [o[0] for o in out])
     new_m = T.unflatten(params, [o[1] for o in out])
     new_v = T.unflatten(params, [o[2] for o in out])
     return new_p, AdamWState(step, new_m, new_v)
+
+
+# elements a chunk of `update`'s elementwise math: its FP32 temporaries
+# stay a few of these, not a few of the largest leaf
+CHUNK = 1 << 24
+
+
+def _chunked(upd, p, g, m, v):
+    """upd(p, g, m, v) -> (p, m, v) over flat chunks of CHUNK elements,
+    written into whole outputs (elementwise: the same bits as one call)."""
+    if p.numel() <= CHUNK:
+        return upd(p, g, m, v)
+    outs = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in (p, m, v))
+    flat = [t.reshape(-1) for t in (p, g, m, v) + outs]
+    for s in range(0, p.numel(), CHUNK):
+        for o, r in zip(flat[4:], upd(*(t[s:s + CHUNK] for t in flat[:4]))):
+            o[s:s + CHUNK] = r
+    return outs
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int,
